@@ -8,14 +8,19 @@ Phases (each raises, and the script exits non-zero, on failure):
                nvcc (one process per source, all at once); prints seconds
                and ptxas' registers / shared memory / spills
   3. kernels - each kernel against its plain PyTorch version on the card,
-               at the main path's shapes and at edge cases; exact equality
+               at the main path's shapes and at edge cases (K1_CASES);
+               exact equality
   4. main    - TPC-H Q1 at SF1 through ExecutionContext().sql(q1).collect(),
                checked against an independent numpy oracle, with every
-               kernel's launch count read around the run
+               kernel's launch count read around the run; then K1 at the
+               main path's own inputs, in its design and with each part
+               of the design switched off (K1_VARIANTS), exact each time
   5. timing  - printed, never asserted: Q1 warm medians of 5 runs, five
-               times over, and their spread; each kernel's time
-               from CUDA events beside its byte bound, its plain version
-               and the one-call PyTorch yardstick
+               times over, and their spread; a profile of one warm Q1;
+               each kernel's device time alone (torch.profiler, per launch
+               over many launches) and around its wrapper (CUDA events),
+               beside its byte bound, its plain version and the one-call
+               PyTorch yardstick; K1's time in each variant
 The last two lines are the kernels JSON line and the ok JSON line.
 """
 
@@ -54,11 +59,16 @@ def log(msg: str) -> None:
 
 
 def card() -> str:
+    """The card's name and power limit, as nvidia-smi prints them; every
+    number the script prints carries them, so it raises without them."""
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,
     )
-    return out.stdout.strip().splitlines()[0] if out.returncode == 0 else "nvidia-smi failed"
+    lines = out.stdout.strip().splitlines()
+    if out.returncode != 0 or not lines:
+        raise RuntimeError(f"nvidia-smi failed (rc {out.returncode}): {out.stderr.strip()}")
+    return lines[0]
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -93,8 +103,81 @@ def k1_inputs(rng, n, domain, k, lo, hi, dead_frac=0.05, none_vals=(), none_mask
     return torch.from_numpy(gid).to(dev), cols, masks, domain
 
 
-def k1_check(name, gid, cols, masks, domain) -> int:
-    sums, cnts = SD.smalldomain_sum_count(gid, cols, masks, domain)
+def with_gid(args, gid):
+    """The same columns under other group ids (a numpy array)."""
+    return (torch.from_numpy(gid.astype(np.int32)).to(args[0].device), *args[1:])
+
+
+def duplicate_pointers(rng):
+    """Items that share tensors, as Q1's sum and avg of one column do."""
+    gid, c, m, domain = k1_inputs(rng, 1 << 20, 12, 3, -(10**12), 10**12)
+    return gid, [c[0], c[0], c[1], c[1], c[2], None, c[0]], [m[0], m[0], m[0], None, m[1], None, m[2]], domain
+
+
+def misaligned(rng):
+    """Columns and masks that start one element into their storage: the
+    kernel loads them row by row instead of 16 bytes at a time."""
+    gid, c, m, domain = k1_inputs(rng, (1 << 20) + 1, 9, 3, -(10**9), 10**9, none_masks=(2,))
+    return gid[1:], [x[1:] for x in c], [None if x is None else x[1:] for x in m], domain
+
+
+def rows(n):
+    return np.arange(n, dtype=np.int64)
+
+
+# name -> builder(rng) -> (gid, cols, masks, domain) on the card; every case
+# is held exactly against the plain version (tests/test_torch_gpu.py too)
+K1_CASES = {
+    "q1-sf1-shape": lambda rng: k1_inputs(rng, 8_388_608, 12, 8, 0, 1_050_000_000,
+                                          none_vals=(7,), none_masks=(7,)),
+    "domain256": lambda rng: k1_inputs(rng, 1 << 20, 256, 8, -(10**14), 10**14,
+                                       none_vals=(2,), none_masks=(5,)),
+    "wrapping": lambda rng: k1_inputs(rng, 1 << 20, 5, 3, (1 << 62) - 1000, 1 << 62),
+    "wrapping-negative": lambda rng: k1_inputs(rng, 1 << 20, 5, 2, -(1 << 62), -(1 << 62) + 1000),
+    "n-not-block-multiple": lambda rng: k1_inputs(rng, 1_000_003, 7, 4, -1000, 1000),
+    "all-dead": lambda rng: with_gid(k1_inputs(rng, 65_536, 4, 1, 0, 10), np.full(65_536, 9)),
+    "duplicate-pointers": duplicate_pointers,
+    "every-mask-null": lambda rng: k1_inputs(rng, 1 << 20, 12, 6, -(10**9), 10**9,
+                                             none_vals=(5,), none_masks=range(6)),
+    "one-group": lambda rng: with_gid(k1_inputs(rng, 1 << 20, 12, 8, -(10**15), 10**15),
+                                      np.where(rows(1 << 20) % 101 == 0, 12, 3)),
+    "gid-row-mod-32": lambda rng: with_gid(k1_inputs(rng, 1 << 20, 40, 4, -(10**9), 10**9),
+                                           rows(1 << 20) % 32),
+    "32-groups-a-warp-row": lambda rng: with_gid(k1_inputs(rng, 1 << 20, 40, 4, -(10**9), 10**9),
+                                                 rows(1 << 20) // 4 % 32 + 3),
+    # 8 distinct masked items: 8 sum and 8 count columns.  Per-lane cells
+    # take 24 * 128 + 16 * 8 = 3,200 B a slot and at most 48 KB: 15 slots.
+    # Beyond, per-warp copies take 128 B a slot and at most 3,072 B: 24.
+    "lane-cells-at-limit": lambda rng: k1_inputs(rng, 1 << 20, 15, 8, -(10**12), 10**12),
+    "lane-cells-over-limit": lambda rng: k1_inputs(rng, 1 << 20, 16, 8, -(10**12), 10**12),
+    "per-warp-copy-at-limit": lambda rng: k1_inputs(rng, 1 << 20, 24, 8, -(10**12), 10**12),
+    "per-warp-copy-over-limit": lambda rng: k1_inputs(rng, 1 << 20, 25, 8, -(10**12), 10**12),
+    "n-3": lambda rng: k1_inputs(rng, 3, 2, 2, -5, 5, dead_frac=0.0),
+    "negative-gids": lambda rng: with_gid(k1_inputs(rng, 1_000_003, 10, 3, -(10**9), 10**9),
+                                          rng.integers(-7, 13, 1_000_003)),
+    "wrapping-both-signs": lambda rng: k1_inputs(rng, 1 << 20, 3, 2, -(1 << 62), 1 << 62),
+    "misaligned": misaligned,
+}
+
+# name -> (options bits of csrc/smalldomain_sum_count.cu, dedup): the
+# design, and each of its parts switched off
+K1_VARIANTS = {
+    "design": (0, True),
+    "(a) off: every item summed and counted apart": (0, False),
+    "(b) warp aggregation (__match_any_sync) instead of per-lane cells": (128, True),
+    "(b) warp aggregation, three pieces a sum": (128 | 64, True),
+    "(b) warp aggregation by a loop over the warp's groups": (128 | 1, True),
+    "(b)(c) off: per-row shared atomics on per-warp copies": (2, True),
+    "(c) off: one copy per block, leaders' shared atomics": (128 | 8, True),
+    "(d) off: row-by-row loads": (4, True),
+    "(e) off: 4 blocks of 256 per SM": (32, True),
+    "(e) 512 threads a block": (16, True),
+    "all off (PR 1's design)": (2 | 4 | 8 | 32 | 64, False),
+}
+
+
+def k1_check(name, gid, cols, masks, domain, options=0, dedup=True) -> int:
+    sums, cnts = SD.smalldomain_sum_count(gid, cols, masks, domain, options=options, dedup=dedup)
     torch.cuda.synchronize()
     ps, pc = SD.smalldomain_sum_count_plain(gid, cols, masks, domain)
     err = max(
@@ -110,23 +193,19 @@ def k1_check(name, gid, cols, masks, domain) -> int:
 
 def phase_kernels() -> int:
     rng = np.random.default_rng(SEED)
-    cases = {
-        "q1-sf1-shape": k1_inputs(rng, 8_388_608, 12, 8, 0, 1_050_000_000,
-                                  none_vals=(7,), none_masks=(7,)),
-        "domain256": k1_inputs(rng, 1 << 20, 256, 8, -(10**14), 10**14,
-                               none_vals=(2,), none_masks=(5,)),
-        "wrapping": k1_inputs(rng, 1 << 20, 5, 3, (1 << 62) - 1000, 1 << 62),
-        "wrapping-negative": k1_inputs(rng, 1 << 20, 5, 2, -(1 << 62), -(1 << 62) + 1000),
-        "n-not-block-multiple": k1_inputs(rng, 1_000_003, 7, 4, -1000, 1000),
-    }
-    dead = k1_inputs(rng, 65_536, 4, 1, 0, 10)
-    cases["all-dead"] = (torch.full_like(dead[0], 9), dead[1], dead[2], 4)
     err = 0
-    for name, args in cases.items():
+    for name, make in K1_CASES.items():
+        args = make(rng)
         err = max(err, k1_check(name, *args))
-    s, c = SD.smalldomain_sum_count(*cases["all-dead"])
-    if int(s.abs().sum()) or int(c.sum()):
-        raise AssertionError("K1 all-dead: non-zero output")
+        if name == "all-dead":
+            s, c = SD.smalldomain_sum_count(*args)
+            if int(s.abs().sum()) or int(c.sum()):
+                raise AssertionError("K1 all-dead: non-zero output")
+        for variant, (options, dedup) in K1_VARIANTS.items():
+            if name in ("domain256", "32-groups-a-warp-row", "duplicate-pointers", "misaligned",
+                        "wrapping-both-signs", "lane-cells-at-limit"):
+                err = max(err, k1_check(f"{name} / {variant}", *args, options, dedup))
+        del args
     return err
 
 
@@ -265,6 +344,28 @@ def k1_library_call(gid, cols, masks, domain):
     return lambda: out.zero_().index_add_(0, g, stacked)
 
 
+def kernel_only_ms(fn, kernel: str, iters: int = 200) -> float:
+    """The device time of the kernel named ``kernel`` alone, per launch,
+    from torch.profiler over ``iters`` calls of ``fn`` (after one warm-up):
+    the wrapper's allocation, fill and host overhead are left out.  The
+    profiler may drop a few kernel records; the mean is over those it kept,
+    at least half of them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    evs = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+    launches = sum(e.count for e in evs)
+    if not iters // 2 <= launches <= iters:
+        raise AssertionError(f"profiler saw {launches} launches of {kernel} in {iters} calls")
+    return sum(e.self_device_time_total for e in evs) / 1e3 / launches
+
+
 def profile_q1(ctx, sql: str, name_power: str) -> None:
     """Where one warm Q1 run spends device time, by operator."""
     from torch.profiler import ProfilerActivity, profile
@@ -309,7 +410,8 @@ def main() -> int:
 
     sql = get_query_sql(1)
     ctx, launches, args = phase_main(sql)
-    err = max(err, k1_check("q1-main-path-inputs", *args))
+    for variant, (options, dedup) in K1_VARIANTS.items():
+        err = max(err, k1_check(f"q1-main-path-inputs / {variant}", *args, options, dedup))
 
     runs = []
     for i in range(2 + 5 * Q1_BATCHES):
@@ -325,13 +427,22 @@ def main() -> int:
 
     profile_q1(ctx, sql, name_power)
 
-    ms = cuda_ms(lambda: SD.smalldomain_sum_count(*args), 20)
+    kname = "smalldomain_sum_count_kernel"
+    bound_ms = k1_bound_ms(*args)
+    shape = f"N={args[0].shape[0]}, domain={args[3]}, k={len(args[1])}"
+    for variant, (options, dedup) in K1_VARIANTS.items():
+        t = kernel_only_ms(
+            lambda: SD.smalldomain_sum_count(*args, options=options, dedup=dedup), kname)
+        log(f"[variants] {name_power}: K1 at Q1 SF1 ({shape}) {variant}: {t:.4f} ms kernel "
+            f"alone, {bound_ms / t:.1%} of the byte bound")
+    ms = kernel_only_ms(lambda: SD.smalldomain_sum_count(*args), kname, 400)
+    wrapper_ms = cuda_ms(lambda: SD.smalldomain_sum_count(*args), 200)
     plain_ms = cuda_ms(lambda: SD.smalldomain_sum_count_plain(*args), 3)
     library_ms = cuda_ms(k1_library_call(*args), 5)
-    bound_ms = k1_bound_ms(*args)
-    log(f"[timing] {name_power}: smalldomain_sum_count at Q1 SF1 (N={args[0].shape[0]}, "
-        f"domain={args[3]}, k={len(args[1])}): {ms:.4f} ms; byte bound {bound_ms:.4f} ms "
-        f"({bound_ms / ms:.1%} of bound); plain {plain_ms:.4f} ms; index_add_ {library_ms:.4f} ms")
+    log(f"[timing] {name_power}: smalldomain_sum_count at Q1 SF1 ({shape}): {ms:.4f} ms "
+        f"kernel alone (torch.profiler, 400 launches), {wrapper_ms:.4f} ms around the wrapper "
+        f"(CUDA events, 200 calls); byte bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of bound); "
+        f"plain {plain_ms:.4f} ms; index_add_ {library_ms:.4f} ms")
 
     kernels = [{
         "name": "smalldomain_sum_count",
@@ -341,6 +452,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
+        "wrapper_ms": wrapper_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",

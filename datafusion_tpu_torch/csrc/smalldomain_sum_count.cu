@@ -4,21 +4,37 @@
 // smalldomain_sum_count (pl.pallas_call at :167, body _make_kernel :48-129).
 // That kernel splits every int64 into 8-bit limbs accumulated in int32
 // (Mosaic is 32-bit) and double-buffers its own HBM->VMEM DMA (no grid).
-// Hopper adds 64-bit integers natively and has atomicAdd on unsigned long
-// long; unsigned addition mod 2^64 is two's-complement int64 wrap-around,
-// so the sums here are exact and independent of the order of the adds.
+// Hopper adds 64-bit integers natively; unsigned addition mod 2^64 is
+// two's-complement int64 wrap-around, so every sum here is exact and
+// independent of the order of the adds.
 //
 // What bounds it: bytes.  Every row reads its group id (4 B); only a live
-// row reads each value column (8 B) and each mask (1 B); the outputs are
-// 2 * domain * k * 8 B.  The first design below is simple and right:
-//   - a grid-stride loop over the rows, 256 threads a block;
-//   - per block, shared accumulators sum[domain*k], cnt[domain*k]
-//     (at most 256 * 8 * 16 B = 32 KB of static shared memory);
-//   - each live row does one shared atomicAdd per column;
-//   - each block then atomically adds its non-zero slots into the global
-//     outputs, which the caller zeroes.
-// With a handful of live slots (TPC-H Q1 has 12) the shared atomics
-// contend; warp aggregation is left for a later change.
+// row reads a value (8 B) or a mask (1 B).  The wrapper hands the kernel
+// distinct work only (ops/smalldomain.py plan_items): each distinct
+// (value, mask) pair is one sum column, each distinct mask one count
+// column (a null mask counts the live rows), and an item map writes the
+// [domain, k] outputs back.  The design:
+//   - loads: a warp takes 128 consecutive rows a step, each lane 4 of them:
+//     one 16-byte group-id load, two 16-byte loads per value column, one
+//     4-byte load per mask, through the read-only path.  A warp whose 128
+//     rows are all dead loads no value or mask, a lane whose 4 rows are
+//     all dead loads none either.  The ragged last step loads row by row.
+//   - warp aggregation: for each of the 4 rows a lane holds,
+//     __match_any_sync gives each lane the lanes of its group; a count is
+//     __popc(peers & ballot), an int64 sum is three __reduce_add_sync over
+//     the peers of its 21/21/22-bit pieces (32 * 2^22 < 2^32, no piece
+//     overflows) recombined mod 2^64.  Only the group's lowest lane, its
+//     leader, touches shared memory: one add per (group in the warp,
+//     column), not one per row.
+//   - privatized accumulators: one copy of sum/cnt[domain][columns] per
+//     warp in shared memory when it fits (kWarpCopyMaxBytes), so the
+//     leader's add is a plain add; else one copy per block, with shared
+//     atomics.  The block then merges its copies and adds each non-zero
+//     slot into the global outputs with one atomic.
+//   - grid: as many blocks as the occupancy calculator fits on the card,
+//     each walking the 128-row steps with a grid stride.
+// The launcher's `options` bits switch each part off, so that its effect
+// can be measured on the card (chip_smoke.py); 0 runs the design above.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -27,81 +43,401 @@ namespace {
 
 constexpr int kMaxCols = 8;
 constexpr int kMaxDomain = 256;
-constexpr int kThreads = 256;
-constexpr int kBlocksPerSM = 4;
+constexpr int kRowsPerLane = 4;
+constexpr int kStep = 32 * kRowsPerLane;  // rows a warp takes a step
+constexpr int kWarpCopyMaxBytes = 3072;   // per-warp accumulators up to this
+constexpr int kMaxThreads = 512;
 
-struct Cols {
-  const long long* vals[kMaxCols];      // nullptr: a count-only item
-  const unsigned char* masks[kMaxCols]; // nullptr: every row is valid
+// options bits
+constexpr int kOptGroupLoop = 1;   // peers and sums by a loop over the warp's groups
+constexpr int kOptNoWarpAgg = 2;   // one shared atomic per row and column
+constexpr int kOptScalar = 4;      // no vector loads
+constexpr int kOptBlockCopy = 8;   // one accumulator copy per block
+constexpr int kOpt512 = 16;        // 512 threads a block instead of 256
+constexpr int kOptOldGrid = 32;    // 4 blocks per SM (the first design)
+constexpr int kOptWide = 64;       // every sum in three pieces, even narrow ones
+constexpr int kOptNoLanes = 128;   // warp aggregation where per-lane copies fit
+constexpr int kOptAll = 255;
+constexpr int kLaneCopyMaxBytes = 48 * 1024;  // per-lane accumulators up to this
+
+enum Agg { kPeers = 0, kGroupLoop = 1, kAtomic = 2, kLanes = 3 };
+
+struct Params {
+  const int* gid;
+  const long long* sum_vals[kMaxCols];       // sum column s adds sum_vals[s] ...
+  signed char sum_cnt[kMaxCols];             // ... where count column sum_cnt[s]'s mask holds
+  const unsigned char* cnt_masks[kMaxCols];  // count column c counts cnt_masks[c]
+                                             // (null: the live rows)
+  signed char item_sum[kMaxCols];  // output column j: sum column (-1: none)
+  signed char item_cnt[kMaxCols];  // output column j: count column
+  int ns, nc, k, domain;
+  long long n;
+  int per_warp;  // 1: one accumulator copy per warp; 0: one per block
+  int wide;      // 1: no single-piece sums
+  unsigned long long* sums;    // [domain, k], zeroed by the caller
+  unsigned long long* counts;  // [domain, k], zeroed by the caller
 };
 
-__global__ void __launch_bounds__(kThreads)
-smalldomain_sum_count_kernel(const int* __restrict__ gid, Cols cols, int k,
-                             long long n, int domain,
-                             unsigned long long* __restrict__ sums,
-                             unsigned long long* __restrict__ counts) {
-  __shared__ unsigned long long s_sum[kMaxDomain * kMaxCols];
-  __shared__ unsigned long long s_cnt[kMaxDomain * kMaxCols];
-  const int slots = domain * k;
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
-    s_sum[i] = 0ULL;
-    s_cnt[i] = 0ULL;
-  }
-  __syncthreads();
+__device__ __forceinline__ void add_to(unsigned long long* a, unsigned long long x,
+                                       bool plain) {
+  if (plain)
+    *a += x;
+  else
+    atomicAdd(a, x);
+}
 
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long r = (long long)blockIdx.x * blockDim.x + threadIdx.x; r < n;
-       r += stride) {
-    const int g = gid[r];
-    if (g < 0 || g >= domain) continue;  // dead row
+// A lane's 4 group ids of step `st` (-1 past the end): rows base + 4*lane + i
+// when `vec`, else base + 32*i + lane.
+__device__ __forceinline__ void load_gid(const Params& p, long long base, int lane, bool vec,
+                                         int (&g)[kRowsPerLane]) {
+  if (vec) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p.gid + base) + lane);
+    g[0] = q.x; g[1] = q.y; g[2] = q.z; g[3] = q.w;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kRowsPerLane; ++i) {
+      const long long r = base + 32 * i + lane;
+      g[i] = r < p.n ? __ldg(p.gid + r) : -1;
+    }
+  }
+}
+
+// The sum over the lanes of `peers` of each lane's x, exact mod 2^64:
+// narrow values (all in [-2^25, 2^25) across the warp) in one 32-bit
+// reduction, others in three pieces of 21/21/22 bits, each < 2^27 summed.
+template <int kAgg>
+__device__ __forceinline__ unsigned long long peer_sum(unsigned long long x, unsigned peers,
+                                                       bool narrow) {
+  if (narrow) {
+    const int r = kAgg == kPeers ? __reduce_add_sync(peers, (int)x)
+                                 : __reduce_add_sync(~0u, peers >> (threadIdx.x & 31) & 1u ? (int)x : 0);
+    return (unsigned long long)(long long)r;
+  }
+  const unsigned p0 = (unsigned)(x & 0x1FFFFFULL);
+  const unsigned p1 = (unsigned)((x >> 21) & 0x1FFFFFULL);
+  const unsigned p2 = (unsigned)(x >> 42);
+  unsigned long long r0, r1, r2;
+  if (kAgg == kPeers) {
+    r0 = __reduce_add_sync(peers, p0);
+    r1 = __reduce_add_sync(peers, p1);
+    r2 = __reduce_add_sync(peers, p2);
+  } else {  // peers holds this lane for the group being summed
+    const bool in = peers >> (threadIdx.x & 31) & 1u;
+    r0 = __reduce_add_sync(~0u, in ? p0 : 0u);
+    r1 = __reduce_add_sync(~0u, in ? p1 : 0u);
+    r2 = __reduce_add_sync(~0u, in ? p2 : 0u);
+  }
+  return r0 + (r1 << 21) + (r2 << 42);
+}
+
+template <int kAgg, bool kVec>
+__global__ void __launch_bounds__(kMaxThreads)
+smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
+  extern __shared__ unsigned long long acc[];
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int warps = blockDim.x >> 5;
+  const int width = p.ns + p.nc;  // sum columns, then count columns
+  const int copy = p.domain * width;
+  // kLanes: 32-bit cells [slot][lane] (a lane's own cell: no two lanes of a
+  // warp share one, and no bank conflict), in three planes: the low and the
+  // high words of the sums, then the counts; the folded slots after them
+  unsigned* cells = reinterpret_cast<unsigned*>(acc);
+  const int sum_cells = p.domain * p.ns * 32;
+  const int ncells = 2 * sum_cells + p.domain * p.nc * 32;  // a multiple of 32
+  unsigned long long* res = kAgg == kLanes ? acc + ncells / 2 : acc;
+  const int total = kAgg == kLanes ? ncells / 2 : p.per_warp ? copy * warps : copy;
+  for (int i = threadIdx.x; i < total; i += blockDim.x) acc[i] = 0ULL;
+  __syncthreads();
+  unsigned long long* my = acc + (p.per_warp ? warp * copy : 0);
+  unsigned* lo32 = cells + lane;
+  unsigned* hi32 = cells + sum_cells + lane;
+  unsigned* cnt32 = cells + 2 * sum_cells + lane;
+  const bool plain = kAgg != kAtomic && p.per_warp;  // one writer per address
+
+  const long long steps = (p.n + kStep - 1) / kStep;
+  const long long stride = (long long)gridDim.x * warps;
+  long long st = (long long)blockIdx.x * warps + warp;
+  int gn[kRowsPerLane];  // the next step's group ids, loaded a step ahead
+  if (st < steps) load_gid(p, st * kStep, lane, kVec && st * kStep + kStep <= p.n, gn);
+  for (; st < steps; st += stride) {
+    const long long base = st * kStep;
+    const bool vec = kVec && base + kStep <= p.n;  // the ragged step: row by row
+    int g[kRowsPerLane];
+#pragma unroll
+    for (int i = 0; i < kRowsPerLane; ++i) g[i] = gn[i];
+    const long long nb = base + stride * kStep;
+    if (nb < p.n) load_gid(p, nb, lane, kVec && nb + kStep <= p.n, gn);
+
+    unsigned live = 0;  // bit i: the lane's row i is live
+#pragma unroll
+    for (int i = 0; i < kRowsPerLane; ++i)
+      live |= (unsigned)g[i] < (unsigned)p.domain ? 1u << i : 0u;
+    if (!__any_sync(~0u, live)) continue;  // a dead step loads nothing more
+
+    // every load of the step first, then the warp-wide work: the loads of
+    // one step are in flight together
+    unsigned mw[kMaxCols];  // vec: the 4 mask bytes; else: 4 mask bits
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
-      if (c < k) {
-        const unsigned char* m = cols.masks[c];
-        if (m == nullptr || m[r]) {
-          const int slot = g * k + c;
-          const long long* v = cols.vals[c];
-          if (v != nullptr) atomicAdd(&s_sum[slot], (unsigned long long)v[r]);
-          atomicAdd(&s_cnt[slot], 1ULL);
+      mw[c] = 0;
+      const unsigned char* m = p.cnt_masks[c];
+      if (c >= p.nc || m == nullptr || !live) continue;
+      if (vec) {
+        mw[c] = __ldg(reinterpret_cast<const unsigned*>(m + base) + lane);
+      } else {
+#pragma unroll
+        for (int i = 0; i < kRowsPerLane; ++i)
+          if ((live >> i) & 1u) mw[c] |= __ldg(m + base + 32 * i + lane) ? 1u << i : 0u;
+      }
+    }
+    unsigned long long v[kMaxCols][kRowsPerLane];
+#pragma unroll
+    for (int s = 0; s < kMaxCols; ++s) {
+#pragma unroll
+      for (int i = 0; i < kRowsPerLane; ++i) v[s][i] = 0ULL;
+      if (s >= p.ns || !live) continue;
+      const long long* vp = p.sum_vals[s];
+      if (vec) {
+        const longlong2* q = reinterpret_cast<const longlong2*>(vp + base) + 2 * lane;
+        const longlong2 a = __ldg(q), b = __ldg(q + 1);
+        v[s][0] = a.x; v[s][1] = a.y; v[s][2] = b.x; v[s][3] = b.y;
+      } else {
+#pragma unroll
+        for (int i = 0; i < kRowsPerLane; ++i)
+          if ((live >> i) & 1u) v[s][i] = __ldg(vp + base + 32 * i + lane);
+      }
+    }
+    unsigned mb[kMaxCols];  // bit i: row i live and valid under count column c's mask
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (p.cnt_masks[c] == nullptr) {
+        mb[c] = live;
+      } else if (vec) {
+        unsigned b = 0;
+#pragma unroll
+        for (int i = 0; i < kRowsPerLane; ++i) b |= ((mw[c] >> (8 * i)) & 0xFFu) ? 1u << i : 0u;
+        mb[c] = b & live;
+      } else {
+        mb[c] = mw[c] & live;
+      }
+    }
+
+    // each lane's group mates, and whether it leads them, per row
+    unsigned peers[kRowsPerLane];
+    unsigned lead = 0;  // bit i: this lane leads its group in row i
+    if (kAgg == kPeers || kAgg == kGroupLoop) {
+#pragma unroll
+      for (int i = 0; i < kRowsPerLane; ++i) {
+        const bool li = (live >> i) & 1u;
+        if (kAgg == kPeers) {
+          peers[i] = __match_any_sync(~0u, li ? g[i] : -1);
+        } else {
+          unsigned todo = __ballot_sync(~0u, li), mp = 0;
+          while (todo) {
+            const int gl = __shfl_sync(~0u, g[i], __ffs(todo) - 1);
+            const unsigned pg = __ballot_sync(~0u, li && g[i] == gl);
+            if (li && g[i] == gl) mp = pg;
+            todo &= ~pg;
+          }
+          peers[i] = mp;
         }
+        if (li && __ffs(peers[i]) - 1 == lane) lead |= 1u << i;
+      }
+    }
+
+#pragma unroll
+    for (int c = 0; c < kMaxCols; ++c) {
+      if (c >= p.nc) break;
+#pragma unroll
+      for (int i = 0; i < kRowsPerLane; ++i) {
+        if (kAgg == kLanes) {
+          if ((mb[c] >> i) & 1u) atomicAdd(&cnt32[(g[i] * p.nc + c) * 32], 1u);
+        } else if (kAgg == kAtomic) {
+          if ((mb[c] >> i) & 1u) atomicAdd(&my[g[i] * width + p.ns + c], 1ULL);
+        } else {
+          const unsigned b = __ballot_sync(~0u, (mb[c] >> i) & 1u);
+          if ((lead >> i) & 1u)
+            add_to(&my[g[i] * width + p.ns + c], __popc(peers[i] & b), plain);
+          __syncwarp();
+        }
+      }
+    }
+
+#pragma unroll
+    for (int s = 0; s < kMaxCols; ++s) {
+      if (s >= p.ns) break;
+      unsigned ok = 0;  // count column sum_cnt[s]'s bits
+#pragma unroll
+      for (int c = 0; c < kMaxCols; ++c)
+        if (c == p.sum_cnt[s]) ok = mb[c];
+#pragma unroll
+      for (int i = 0; i < kRowsPerLane; ++i) {
+        const unsigned long long x = ((ok >> i) & 1u) ? v[s][i] : 0ULL;
+        if (kAgg == kLanes) {  // 64-bit add as two 32-bit ones, carry passed up
+          if ((ok >> i) & 1u) {
+            const int cell = (g[i] * p.ns + s) * 32;
+            const unsigned lo = (unsigned)x;
+            const unsigned old = atomicAdd(&lo32[cell], lo);
+            const unsigned hi = (unsigned)(x >> 32) + ((unsigned)(old + lo) < lo ? 1u : 0u);
+            if (hi) atomicAdd(&hi32[cell], hi);
+          }
+          continue;
+        }
+        if (kAgg == kAtomic) {
+          if ((ok >> i) & 1u) atomicAdd(&my[g[i] * width + s], x);
+          continue;
+        }
+        const bool narrow =
+            !p.wide && __all_sync(~0u, (x + (1ULL << 25)) < (1ULL << 26));
+        if (kAgg == kPeers) {
+          const unsigned long long r = peer_sum<kPeers>(x, peers[i], narrow);
+          if ((lead >> i) & 1u) add_to(&my[g[i] * width + s], r, plain);
+        } else {
+          unsigned leaders = __ballot_sync(~0u, (lead >> i) & 1u);
+          while (leaders) {
+            const int l = __ffs(leaders) - 1;
+            leaders &= leaders - 1;
+            const unsigned long long r =
+                peer_sum<kGroupLoop>(x, __shfl_sync(~0u, peers[i], l), narrow);
+            if (lane == l) add_to(&my[g[i] * width + s], r, plain);
+          }
+        }
+        __syncwarp();
       }
     }
   }
   __syncthreads();
 
-  for (int i = threadIdx.x; i < slots; i += blockDim.x) {
-    if (s_sum[i] != 0ULL) atomicAdd(&sums[i], s_sum[i]);
-    if (s_cnt[i] != 0ULL) atomicAdd(&counts[i], s_cnt[i]);
+  if (p.per_warp) {  // fold the warps' copies into the first
+    for (int i = threadIdx.x; i < copy; i += blockDim.x) {
+      unsigned long long x = acc[i];
+      for (int w = 1; w < warps; ++w) x += acc[w * copy + i];
+      acc[i] = x;
+    }
+    __syncthreads();
+  } else if (kAgg == kLanes) {  // fold each slot's 32 lane cells into res
+    for (int i = threadIdx.x; i < copy; i += blockDim.x) {
+      const int gg = i / width, col = i - gg * width;
+      unsigned long long x = 0ULL;
+      for (int l = 0; l < 32; ++l) {
+        const int r = (l + i) & 31;  // no bank conflicts
+        if (col < p.ns) {
+          const int cell = (gg * p.ns + col) * 32 + r;
+          x += ((unsigned long long)cells[sum_cells + cell] << 32) | cells[cell];
+        } else {
+          x += cells[2 * sum_cells + (gg * p.nc + col - p.ns) * 32 + r];
+        }
+      }
+      res[i] = x;
+    }
+    __syncthreads();
   }
+  for (int o = threadIdx.x; o < p.domain * p.k; o += blockDim.x) {
+    const int gg = o / p.k, j = o - gg * p.k;
+    const int s = p.item_sum[j];
+    if (s >= 0) {
+      const unsigned long long x = res[gg * width + s];
+      if (x) atomicAdd(&p.sums[o], x);
+    }
+    const unsigned long long x = res[gg * width + p.ns + p.item_cnt[j]];
+    if (x) atomicAdd(&p.counts[o], x);
+  }
+}
+
+template <int kAgg, bool kVec>
+int launch(const Params& p, int threads, int old_grid, size_t smem, cudaStream_t stream) {
+  auto kernel = smalldomain_sum_count_kernel<kAgg, kVec>;
+  // blocks the card holds at this (threads, smem), cached per kernel
+  static int cached_threads = 0, cached_blocks = 0, cached_sms = 0, cached_dev = -1;
+  static size_t cached_smem = 0;
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return (int)e;
+  if (dev != cached_dev || threads != cached_threads || smem != cached_smem) {
+    int sms = 0, per_sm = 0;
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return (int)e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (e != cudaSuccess) return (int)e;
+    if (sms < 1 || per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+    cached_blocks = sms * per_sm;
+    cached_sms = sms;
+    cached_dev = dev; cached_threads = threads; cached_smem = smem;
+  }
+  long long blocks = old_grid ? 4LL * cached_sms : cached_blocks;
+  const long long warps = threads / 32;
+  const long long want = ((p.n + kStep - 1) / kStep + warps - 1) / warps;
+  if (want < blocks) blocks = want;
+  kernel<<<(int)blocks, threads, smem, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Launch on `stream`.  vals/masks: k pointers each (nullptr allowed, see
-// Cols).  sums/counts: [domain, k] int64, zeroed by the caller.  Returns
-// cudaGetLastError() after the launch (0 on success).
-extern "C" int smalldomain_sum_count_launch(const void* gid,
-                                            const void* const* vals,
-                                            const void* const* masks, int k,
-                                            long long n, int domain,
-                                            void* sums, void* counts,
-                                            void* stream) {
-  if (k < 1 || k > kMaxCols || domain < 1 || domain > kMaxDomain || n < 0)
+// Launch on `stream`.  sum_vals: ns value pointers, sum_cnt: the count
+// column whose mask each sum column takes; cnt_masks: nc mask pointers
+// (null: count the live rows); item_sum/item_cnt: k column indices
+// (item_sum -1: a count-only item).  sums/counts: [domain, k] int64,
+// zeroed by the caller.  `options`: the kOpt* bits above, 0 for the design
+// in the header.  Returns cudaGetLastError() after the launch (0 on
+// success).
+extern "C" int smalldomain_sum_count_launch(
+    const void* gid, long long n, int domain, int ns, const void* const* sum_vals,
+    const signed char* sum_cnt, int nc, const void* const* cnt_masks, int k,
+    const signed char* item_sum, const signed char* item_cnt, void* sums, void* counts,
+    int options, void* stream) {
+  if (k < 1 || k > kMaxCols || ns < 0 || ns > kMaxCols || nc < 1 || nc > kMaxCols ||
+      domain < 1 || domain > kMaxDomain || n < 0 || n >= (1LL << 36) ||  // 32-bit cells:
+      (options & ~kOptAll))                        // a lane's share of n rows < 2^32
     return (int)cudaErrorInvalidValue;
-  if (n == 0) return 0;
-  Cols cols;
-  for (int c = 0; c < kMaxCols; ++c) {
-    cols.vals[c] = c < k ? (const long long*)vals[c] : nullptr;
-    cols.masks[c] = c < k ? (const unsigned char*)masks[c] : nullptr;
+  Params p = {};
+  p.gid = (const int*)gid;
+  for (int s = 0; s < ns; ++s) {
+    if (sum_vals[s] == nullptr || sum_cnt[s] < 0 || sum_cnt[s] >= nc)
+      return (int)cudaErrorInvalidValue;
+    p.sum_vals[s] = (const long long*)sum_vals[s];
+    p.sum_cnt[s] = sum_cnt[s];
   }
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  long long want = (n + kThreads - 1) / kThreads;
-  long long cap = (long long)(sms > 0 ? sms : 1) * kBlocksPerSM;
-  int blocks = (int)(want < cap ? want : cap);
-  smalldomain_sum_count_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int*)gid, cols, k, n, domain, (unsigned long long*)sums,
-      (unsigned long long*)counts);
-  return (int)cudaGetLastError();
+  for (int c = 0; c < nc; ++c) p.cnt_masks[c] = (const unsigned char*)cnt_masks[c];
+  for (int j = 0; j < k; ++j) {
+    if (item_sum[j] < -1 || item_sum[j] >= ns || item_cnt[j] < 0 || item_cnt[j] >= nc)
+      return (int)cudaErrorInvalidValue;
+    p.item_sum[j] = item_sum[j];
+    p.item_cnt[j] = item_cnt[j];
+  }
+  p.ns = ns; p.nc = nc; p.k = k; p.domain = domain; p.n = n;
+  p.wide = (options & kOptWide) != 0;
+  p.sums = (unsigned long long*)sums;
+  p.counts = (unsigned long long*)counts;
+  if (n == 0) return 0;
+
+  const int threads = (options & kOpt512) ? 512 : 256;
+  const size_t copy = (size_t)domain * (ns + nc) * sizeof(unsigned long long);
+  const size_t lane_bytes = (size_t)domain * (2 * ns + nc) * 32 * sizeof(unsigned) + copy;
+  const bool lanes = !(options & (kOptNoLanes | kOptNoWarpAgg | kOptGroupLoop | kOptBlockCopy)) &&
+                     lane_bytes <= (size_t)kLaneCopyMaxBytes;
+  p.per_warp = !lanes && !(options & kOptBlockCopy) && copy <= (size_t)kWarpCopyMaxBytes;
+  const size_t smem = lanes ? lane_bytes : p.per_warp ? copy * (threads / 32) : copy;  // <= 48 KB
+
+  // 16-byte loads need 16-byte aligned group ids and values, 4-byte masks
+  bool aligned = ((uintptr_t)gid & 15) == 0;
+  for (int s = 0; s < ns; ++s) aligned = aligned && ((uintptr_t)p.sum_vals[s] & 15) == 0;
+  for (int c = 0; c < nc; ++c) aligned = aligned && ((uintptr_t)p.cnt_masks[c] & 3) == 0;
+  const bool vec = aligned && !(options & kOptScalar);
+
+  const int old_grid = options & kOptOldGrid;
+  cudaStream_t st = (cudaStream_t)stream;
+  const int agg = lanes ? kLanes : (options & kOptNoWarpAgg) ? kAtomic
+                : (options & kOptGroupLoop) ? kGroupLoop : kPeers;
+  switch (agg * 2 + (vec ? 1 : 0)) {
+    case kLanes * 2 + 1: return launch<kLanes, true>(p, threads, old_grid, smem, st);
+    case kLanes * 2: return launch<kLanes, false>(p, threads, old_grid, smem, st);
+    case kPeers * 2 + 1: return launch<kPeers, true>(p, threads, old_grid, smem, st);
+    case kPeers * 2: return launch<kPeers, false>(p, threads, old_grid, smem, st);
+    case kGroupLoop * 2 + 1: return launch<kGroupLoop, true>(p, threads, old_grid, smem, st);
+    case kGroupLoop * 2: return launch<kGroupLoop, false>(p, threads, old_grid, smem, st);
+    case kAtomic * 2 + 1: return launch<kAtomic, true>(p, threads, old_grid, smem, st);
+    default: return launch<kAtomic, false>(p, threads, old_grid, smem, st);
+  }
 }

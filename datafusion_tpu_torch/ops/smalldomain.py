@@ -14,14 +14,17 @@ exact: int64 sums wrap mod 2^64, like the reference.
 
 What bounds the kernel on an H100 is bytes: it reads the 4-byte group id
 of all N rows, then 8 bytes per distinct value column and 1 per distinct
-mask of each live row only (a tensor passed twice is read once), and
-writes 2 * domain * k int64 values.
+mask of each live row only, and writes 2 * domain * k int64 values.  The
+kernel is handed distinct work only (``plan_items``): TPC-H Q1 passes one
+tensor for the sum and the avg of a column, and ``count(*)`` is the row
+count of each slot.
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -29,7 +32,48 @@ MAX_DOMAIN = 256
 MAX_COLS = 8
 
 
-def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int):
+class Plan(NamedTuple):
+    """What the kernel computes for k (value, mask) items, and where each
+    item's outputs come from."""
+
+    sum_cols: list  # distinct (value, mask or None) pairs, one sum column each
+    sum_cnt: list  # per sum column: the count column of its mask
+    count_masks: list  # distinct masks, one count column each (None: the live rows)
+    item_sum: list  # per item: its sum column, or -1 for a count-only item
+    item_cnt: list  # per item: its count column
+
+
+def plan_items(cols, masks, dedup: bool = True) -> Plan:
+    """Each distinct (value, mask) pair is summed once and each distinct
+    mask counted once; tensors are the same when their storage is
+    (``data_ptr``), and a null mask counts the slot's live rows, as
+    ``count(*)`` does.  ``dedup=False`` gives every item its own columns."""
+    sum_cols, sum_cnt, count_masks, item_sum, item_cnt = [], [], [], [], []
+    sum_at, cnt_at = {}, {}
+
+    def ptr(t):
+        return None if t is None else t.data_ptr()
+
+    for j, (c, m) in enumerate(zip(cols, masks)):
+        key = ptr(m) if dedup else j
+        if key not in cnt_at:
+            cnt_at[key] = len(count_masks)
+            count_masks.append(m)
+        item_cnt.append(cnt_at[key])
+        if c is None:
+            item_sum.append(-1)
+            continue
+        key = (ptr(c), ptr(m)) if dedup else j
+        if key not in sum_at:
+            sum_at[key] = len(sum_cols)
+            sum_cols.append((c, m))
+            sum_cnt.append(item_cnt[-1])
+        item_sum.append(sum_at[key])
+    return Plan(sum_cols, sum_cnt, count_masks, item_sum, item_cnt)
+
+
+def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int, *, options: int = 0,
+                          dedup: bool = True):
     """Per (group slot, column): the wrapping int64 sum of the valid values
     and the int64 count of valid rows.
 
@@ -41,7 +85,10 @@ def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int):
 
     On CUDA tensors this launches the kernel (at most 256 slots and 8
     columns, contiguous inputs) or raises; it never falls back to the
-    plain version.  ``smalldomain_sum_count.launches`` counts launches."""
+    plain version.  ``options`` (the kernel's ``kOpt*`` bits) and
+    ``dedup=False`` switch parts of the design off, for measuring them;
+    the defaults run all of it.  ``smalldomain_sum_count.launches`` counts
+    launches."""
     cols, masks = list(cols), list(masks)
     if len(cols) != len(masks):
         raise ValueError("cols and masks must pair up")
@@ -50,16 +97,25 @@ def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int):
     _check_cuda_args(gid, cols, masks, domain)
     k = len(cols)
     n = gid.shape[0]
-    sums = torch.zeros((domain, k), dtype=torch.int64, device=gid.device)
-    counts = torch.zeros((domain, k), dtype=torch.int64, device=gid.device)
+    out = torch.zeros((2, domain, k), dtype=torch.int64, device=gid.device)
+    sums, counts = out[0], out[1]
     if n == 0:
         return sums, counts
-    vals = (ctypes.c_void_p * MAX_COLS)(*[c.data_ptr() if c is not None else None for c in cols])
-    mptrs = (ctypes.c_void_p * MAX_COLS)(*[m.data_ptr() if m is not None else None for m in masks])
+    plan = plan_items(cols, masks, dedup)
+
+    def ptrs(ts):
+        return (ctypes.c_void_p * MAX_COLS)(*[None if t is None else t.data_ptr() for t in ts])
+
+    def idx(xs):
+        return (ctypes.c_byte * MAX_COLS)(*xs)
+
     stream = torch.cuda.current_stream(gid.device).cuda_stream
     err = _launcher()(
-        gid.data_ptr(), vals, mptrs, k, n, domain,
-        sums.data_ptr(), counts.data_ptr(), stream,
+        gid.data_ptr(), n, domain,
+        len(plan.sum_cols), ptrs(c for c, _ in plan.sum_cols), idx(plan.sum_cnt),
+        len(plan.count_masks), ptrs(plan.count_masks),
+        k, idx(plan.item_sum), idx(plan.item_cnt),
+        sums.data_ptr(), counts.data_ptr(), options, stream,
     )
     if err != 0:
         raise RuntimeError(f"smalldomain_sum_count launch failed: CUDA error {err}")
@@ -78,13 +134,19 @@ def _launcher():
     fn = load("smalldomain_sum_count").smalldomain_sum_count_launch
     fn.argtypes = [
         ctypes.c_void_p,  # gid
-        ctypes.POINTER(ctypes.c_void_p),  # vals[MAX_COLS]
-        ctypes.POINTER(ctypes.c_void_p),  # masks[MAX_COLS]
-        ctypes.c_int,  # k
         ctypes.c_longlong,  # n
         ctypes.c_int,  # domain
+        ctypes.c_int,  # ns
+        ctypes.POINTER(ctypes.c_void_p),  # sum_vals[MAX_COLS]
+        ctypes.POINTER(ctypes.c_byte),  # sum_cnt[MAX_COLS]
+        ctypes.c_int,  # nc
+        ctypes.POINTER(ctypes.c_void_p),  # cnt_masks[MAX_COLS]
+        ctypes.c_int,  # k
+        ctypes.POINTER(ctypes.c_byte),  # item_sum[MAX_COLS]
+        ctypes.POINTER(ctypes.c_byte),  # item_cnt[MAX_COLS]
         ctypes.c_void_p,  # sums
         ctypes.c_void_p,  # counts
+        ctypes.c_int,  # options
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int

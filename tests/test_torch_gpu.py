@@ -6,14 +6,17 @@ without JAX (tests/conftest.py imports it):
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
 They check kernel K1 against its plain PyTorch version at TPC-H Q1's
-shapes and at edge cases (exact equality), Q1 on the card against Q1 on
-the CPU, and that Q1 on the card launched K1.
+shapes and at edge cases (exact equality), among them every case of
+``chip_smoke.K1_CASES`` and every part of K1's design switched off
+(``chip_smoke.K1_VARIANTS``); Q1 on the card against Q1 on the CPU; and
+that Q1 on the card launched K1.
 """
 
 import numpy as np
 import pytest
 import torch
 
+import chip_smoke
 from datafusion_tpu_torch import ExecutionContext
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.q1data import generate_lineitem_q1
@@ -57,6 +60,32 @@ def test_k1_kernel_equals_plain(cuda, n, domain, k, lo, hi):
     ps, pc = SD.smalldomain_sum_count_plain(gid, cols, masks, domain)
     assert torch.equal(s, ps) and torch.equal(c, pc)
     assert SD.smalldomain_sum_count.launches == before + (1 if n else 0)
+
+
+def _exact(args, **kw):
+    s, c = SD.smalldomain_sum_count(*args, **kw)
+    torch.cuda.synchronize()
+    ps, pc = SD.smalldomain_sum_count_plain(*args)
+    assert torch.equal(s, ps) and torch.equal(c, pc)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(chip_smoke.K1_CASES))
+def test_k1_smoke_cases_equal_plain(cuda, name):
+    args = chip_smoke.K1_CASES[name](np.random.default_rng(1))
+    before = SD.smalldomain_sum_count.launches
+    _exact(args)
+    assert SD.smalldomain_sum_count.launches == before + 1
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("variant", list(chip_smoke.K1_VARIANTS))
+@pytest.mark.parametrize("name", ["q1-sf1-shape", "32-groups-a-warp-row", "per-warp-copy-over-limit",
+                                  "duplicate-pointers", "misaligned", "wrapping-both-signs",
+                                  "lane-cells-at-limit"])
+def test_k1_variants_equal_plain(cuda, name, variant):
+    options, dedup = chip_smoke.K1_VARIANTS[variant]
+    _exact(chip_smoke.K1_CASES[name](np.random.default_rng(2)), options=options, dedup=dedup)
 
 
 @pytest.mark.gpu

@@ -1,7 +1,10 @@
 """Kernel K1 of the torch port (datafusion_tpu_torch/ops/smalldomain.py):
 its plain PyTorch version, which the CPU runs, against the JAX package's
 Pallas kernel in interpreter mode (as tests/test_pallas.py runs it) and
-against a numpy oracle.  Integer sums and counts: exact equality."""
+against a numpy oracle; and the plan that hands the CUDA kernel distinct
+work only (``plan_items``), run through the plain version and written back
+through its item map as the kernel writes it.  Integer sums and counts:
+exact equality."""
 
 import numpy as np
 import pytest
@@ -34,6 +37,28 @@ def _port(gid, cols, masks, domain):
     return s.numpy(), c.numpy()
 
 
+def _through_plan(gid, cols, masks, domain, dedup=True):
+    """What the CUDA kernel computes: the plain version over the plan's
+    distinct sum and count columns, written back through the item map."""
+    tg = torch.from_numpy(gid)
+    tc = [None if x is None else torch.from_numpy(x) for x in cols]
+    tm = [None if m is None else torch.from_numpy(m) for m in masks]
+    plan = SD.plan_items(tc, tm, dedup)
+    s, _ = SD.smalldomain_sum_count_plain(
+        tg, [c for c, _ in plan.sum_cols], [m for _, m in plan.sum_cols], domain
+    )
+    _, c = SD.smalldomain_sum_count_plain(
+        tg, [None] * len(plan.count_masks), plan.count_masks, domain
+    )
+    sums = np.zeros((domain, len(cols)), np.int64)
+    counts = np.zeros((domain, len(cols)), np.int64)
+    for j, (si, ci) in enumerate(zip(plan.item_sum, plan.item_cnt)):
+        if si >= 0:
+            sums[:, j] = s[:, si].numpy()
+        counts[:, j] = c[:, ci].numpy()
+    return plan, sums, counts
+
+
 def _oracle(gid, cols, masks, domain):
     n = len(gid)
     sums = np.zeros((domain, len(cols)), np.int64)
@@ -47,7 +72,7 @@ def _oracle(gid, cols, masks, domain):
     return sums, counts
 
 
-@pytest.mark.parametrize("ntiles,domain,k", [(1, 3, 1), (2, 5, 2)])
+@pytest.mark.parametrize("ntiles,domain,k", [(1, 3, 1), (2, 5, 2), (1, 2, 3)])
 def test_plain_equals_pallas_interpret(ntiles, domain, k):
     gid, cols, masks = _inputs(ntiles * 100 + domain * 10 + k, TILE * ntiles, domain, k)
     js, jc = jax_k1(
@@ -60,6 +85,9 @@ def test_plain_equals_pallas_interpret(ntiles, domain, k):
     ps, pc = _port(gid, cols, masks, domain)
     np.testing.assert_array_equal(ps, np.asarray(js))
     np.testing.assert_array_equal(pc, np.asarray(jc))
+    _, qs, qc = _through_plan(gid, cols, masks, domain)
+    np.testing.assert_array_equal(qs, np.asarray(js))
+    np.testing.assert_array_equal(qc, np.asarray(jc))
 
 
 def test_all_dead_rows_equal_pallas_interpret():
@@ -95,10 +123,84 @@ def test_plain_equals_numpy_oracle(n, domain, lo, hi):
     os_, oc = _oracle(gid, cols, masks, domain)
     np.testing.assert_array_equal(ps, os_)
     np.testing.assert_array_equal(pc, oc)
+    for dedup in (True, False):
+        _, qs, qc = _through_plan(gid, cols, masks, domain, dedup)
+        np.testing.assert_array_equal(qs, os_)
+        np.testing.assert_array_equal(qc, oc)
     if abs(lo) > 1 << 61:  # the wrapping cases really wrapped
         exact = sum(int(x) for x in cols[0][(gid == 0) & masks[0]])
         assert int(ps[0, 0]) != exact
         assert (int(ps[0, 0]) - exact) % (1 << 64) == 0
+
+
+def _q1_items(a, m):
+    """TPC-H Q1's 8 items over value arrays a[0..4] (quantity, price, disc
+    price, charge, discount) and masks m[0..4]: sum_qty, sum_base_price,
+    sum_disc_price, sum_charge, avg_qty, avg_price, avg_disc, count(*).
+    The sum and the avg of one column get the same tensor."""
+    cols = [a[0], a[1], a[2], a[3], a[0], a[1], a[4], None]
+    masks = [m[0], m[1], m[2], m[3], m[0], m[1], m[4], None]
+    return cols, masks
+
+
+# item pattern -> (items, sum columns, count columns, item_sum, item_cnt);
+# a[i] are distinct value arrays, m[i] distinct masks
+PLAN_CASES = {
+    "same-tensor-twice": (lambda a, m: ([a[0], a[0]], [m[0], m[0]]), 1, 1, [0, 0], [0, 0]),
+    "same-mask-two-columns": (lambda a, m: ([a[0], a[1]], [m[0], m[0]]), 2, 1, [0, 1], [0, 0]),
+    "same-value-two-masks": (lambda a, m: ([a[0], a[0]], [m[0], m[1]]), 2, 2, [0, 1], [0, 1]),
+    "null-masks": (lambda a, m: ([a[0], a[1], a[0]], [None, None, None]), 2, 1, [0, 1, 0], [0, 0, 0]),
+    "count-star": (lambda a, m: ([None, a[0]], [None, None]), 1, 1, [-1, 0], [0, 0]),
+    "count-of-a-column": (lambda a, m: ([None, a[0]], [m[0], m[0]]), 1, 1, [-1, 0], [0, 0]),
+    "all-distinct": (lambda a, m: (a[:3], m[:3]), 3, 3, [0, 1, 2], [0, 1, 2]),
+    "q1-items": (_q1_items, 5, 6, [0, 1, 2, 3, 0, 1, 4, -1], [0, 1, 2, 3, 0, 1, 4, 5]),
+}
+
+
+@pytest.mark.parametrize("case", list(PLAN_CASES))
+def test_plan_dedups_and_maps_items_back(case):
+    make, ns, nc, item_sum, item_cnt = PLAN_CASES[case]
+    n, domain = 5_000, 12
+    gid, a, m = _inputs(7, n, domain, 5)
+    gid[::31] = -2
+    cols, masks = make(a, m)
+    plan, qs, qc = _through_plan(gid, cols, masks, domain)
+    assert (len(plan.sum_cols), len(plan.count_masks)) == (ns, nc)
+    assert (plan.item_sum, plan.item_cnt) == (item_sum, item_cnt)
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    for (_, mask), c in zip(plan.sum_cols, plan.sum_cnt):  # a sum's mask is counted
+        assert ptr(plan.count_masks[c]) == ptr(mask)
+    ps, pc = _port(gid, cols, masks, domain)  # the plain version, item by item
+    os_, oc = _oracle(gid, cols, masks, domain)
+    np.testing.assert_array_equal(qs, ps)
+    np.testing.assert_array_equal(qc, pc)
+    np.testing.assert_array_equal(qs, os_)
+    np.testing.assert_array_equal(qc, oc)
+    undone, us, uc = _through_plan(gid, cols, masks, domain, dedup=False)
+    assert len(undone.count_masks) == len(cols)
+    assert len(undone.sum_cols) == sum(c is not None for c in cols)
+    np.testing.assert_array_equal(us, ps)
+    np.testing.assert_array_equal(uc, pc)
+
+
+def test_q1_items_through_plan_equal_pallas_interpret():
+    """Q1's item pattern, deduplicated, against the Pallas kernel handed
+    every item apart (zeros for a count-only item, all-true for a null
+    mask, as the reference's caller passes them)."""
+    n, domain = TILE, 6  # Q1's six live slots
+    gid, a, m = _inputs(12, n, domain, 5, 0, 10**9)
+    cols, masks = _q1_items(a, m)
+    js, jc = jax_k1(
+        jnp.asarray(gid),
+        tuple(jnp.asarray(np.zeros(n, np.int64) if c is None else c) for c in cols),
+        tuple(jnp.asarray(np.ones(n, bool) if x is None else x) for x in masks),
+        domain,
+        interpret=True,
+    )
+    plan, qs, qc = _through_plan(gid, cols, masks, domain)
+    assert (len(plan.sum_cols), len(plan.count_masks)) == (5, 6)
+    np.testing.assert_array_equal(qs, np.asarray(js))
+    np.testing.assert_array_equal(qc, np.asarray(jc))
 
 
 def test_cpu_tensors_run_plain_without_launch():
