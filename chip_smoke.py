@@ -5,8 +5,9 @@
 Phases (each raises, and the script exits non-zero, on failure):
   1. device  - a CUDA card must be present; prints its name and power limit
   2. build   - compiles every kernel under datafusion_tpu_torch/csrc with
-               nvcc (one process per source, all at once); prints seconds
-               and ptxas' registers / shared memory / spills
+               nvcc (one process per source, all at once); prints seconds,
+               ptxas' registers / shared memory / spills and the atomic and
+               warp-reduction opcodes of the machine code
   3. kernels - each kernel against its plain PyTorch version on the card,
                at the main path's shapes and at edge cases (K1_CASES);
                exact equality
@@ -26,17 +27,21 @@ The last two lines are the kernels JSON line and the ok JSON line.
 
 from __future__ import annotations
 
+import collections
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 from datafusion_tpu_torch import ExecutionContext
-from datafusion_tpu_torch.build import BUILD_LOG, build_all
+from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.physical import stage_compiler
 from datafusion_tpu_torch.q1data import (
@@ -69,6 +74,21 @@ def card() -> str:
     if out.returncode != 0 or not lines:
         raise RuntimeError(f"nvidia-smi failed (rc {out.returncode}): {out.stderr.strip()}")
     return lines[0]
+
+
+def sass_ops(name: str) -> str:
+    """How often each shared-memory atomic and warp-wide reduction opcode
+    occurs in the kernel library's machine code (cuobjdump -sass): a 64-bit
+    shared atomicAdd shows as ATOMS.CAST.SPIN.64, a compare-and-swap loop."""
+    tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
+    if not tool.exists():
+        return "cuobjdump not found"
+    out = subprocess.run([str(tool), "-sass", str(library_path(name))],
+                         capture_output=True, text=True, timeout=120)
+    if out.returncode != 0:
+        return f"cuobjdump failed (rc {out.returncode})"
+    ops = collections.Counter(re.findall(r"\b((?:ATOMS|REDUX|MATCH)\.[A-Z0-9.]+)", out.stdout))
+    return ", ".join(f"{op} x{n}" for op, n in sorted(ops.items()))
 
 
 def cuda_ms(fn, iters: int) -> float:
@@ -160,19 +180,12 @@ K1_CASES = {
 }
 
 # name -> (options bits of csrc/smalldomain_sum_count.cu, dedup): the
-# design, and each of its parts switched off
+# design, and parts of it switched off
 K1_VARIANTS = {
     "design": (0, True),
     "(a) off: every item summed and counted apart": (0, False),
-    "(b) warp aggregation (__match_any_sync) instead of per-lane cells": (128, True),
-    "(b) warp aggregation, three pieces a sum": (128 | 64, True),
-    "(b) warp aggregation by a loop over the warp's groups": (128 | 1, True),
-    "(b)(c) off: per-row shared atomics on per-warp copies": (2, True),
-    "(c) off: one copy per block, leaders' shared atomics": (128 | 8, True),
-    "(d) off: row-by-row loads": (4, True),
-    "(e) off: 4 blocks of 256 per SM": (32, True),
-    "(e) 512 threads a block": (16, True),
-    "all off (PR 1's design)": (2 | 4 | 8 | 32 | 64, False),
+    "warp aggregation instead of per-lane cells": (1, True),
+    "row-by-row loads": (2, True),
 }
 
 
@@ -405,6 +418,7 @@ def main() -> int:
         for line in BUILD_LOG.get(k, "").splitlines():
             if "ptxas" in line or "spill" in line:
                 log(f"[build]   {line.strip()}")
+        log(f"[build]   SASS: {sass_ops(k)}")
 
     err = phase_kernels()
 

@@ -4,9 +4,8 @@
 // smalldomain_sum_count (pl.pallas_call at :167, body _make_kernel :48-129).
 // That kernel splits every int64 into 8-bit limbs accumulated in int32
 // (Mosaic is 32-bit) and double-buffers its own HBM->VMEM DMA (no grid).
-// Hopper adds 64-bit integers natively; unsigned addition mod 2^64 is
-// two's-complement int64 wrap-around, so every sum here is exact and
-// independent of the order of the adds.
+// Here unsigned addition mod 2^64 is two's-complement int64 wrap-around,
+// so every sum is exact and independent of the order of the adds.
 //
 // What bounds it: bytes.  Every row reads its group id (4 B); only a live
 // row reads a value (8 B) or a mask (1 B).  The wrapper hands the kernel
@@ -16,25 +15,31 @@
 // [domain, k] outputs back.  The design:
 //   - loads: a warp takes 128 consecutive rows a step, each lane 4 of them:
 //     one 16-byte group-id load, two 16-byte loads per value column, one
-//     4-byte load per mask, through the read-only path.  A warp whose 128
-//     rows are all dead loads no value or mask, a lane whose 4 rows are
-//     all dead loads none either.  The ragged last step loads row by row.
-//   - warp aggregation: for each of the 4 rows a lane holds,
-//     __match_any_sync gives each lane the lanes of its group; a count is
-//     __popc(peers & ballot), an int64 sum is three __reduce_add_sync over
-//     the peers of its 21/21/22-bit pieces (32 * 2^22 < 2^32, no piece
-//     overflows) recombined mod 2^64.  Only the group's lowest lane, its
-//     leader, touches shared memory: one add per (group in the warp,
-//     column), not one per row.
-//   - privatized accumulators: one copy of sum/cnt[domain][columns] per
-//     warp in shared memory when it fits (kWarpCopyMaxBytes), so the
-//     leader's add is a plain add; else one copy per block, with shared
-//     atomics.  The block then merges its copies and adds each non-zero
-//     slot into the global outputs with one atomic.
-//   - grid: as many blocks as the occupancy calculator fits on the card,
-//     each walking the 128-row steps with a grid stride.
-// The launcher's `options` bits switch each part off, so that its effect
-// can be measured on the card (chip_smoke.py); 0 runs the design above.
+//     4-byte load per mask, through the read-only path.  All loads of a
+//     step are issued before any of them is used, and the next step's
+//     group ids are loaded a step ahead.  A step whose rows are all dead
+//     loads no value or mask, nor does a lane whose 4 rows are all dead.
+//     Unaligned inputs and the ragged last step load row by row.
+//   - per-lane cells: each lane adds its rows into its own 32-bit cells in
+//     shared memory, one per (slot, column), [slot][lane], so no two lanes
+//     of a warp meet at a cell or a bank; the block's warps share the
+//     cells through native 32-bit shared atomics.  A 64-bit sum is two
+//     32-bit adds, the carry out of the low word passed up.  (A 64-bit
+//     shared atomicAdd compiles to a compare-and-swap loop on sm_90a.)
+//     At the end each slot's 32 cells fold into one 64-bit value.
+//   - where the cells do not fit in kLaneBytesMax (domain * columns
+//     large), warps aggregate instead: __match_any_sync gives each lane
+//     the lanes of its group, a count is __popc(peers & ballot), a sum is
+//     __reduce_add_sync over the peers (one 32-bit reduction when every
+//     value of the warp lies in [-2^25, 2^25), else three of 21/21/22-bit
+//     pieces), and only the group's lowest lane adds it, into a copy per
+//     warp when that fits in kWarpCopyMaxBytes, else into one per block.
+//   - the block adds each non-zero slot into the global outputs with one
+//     atomic; the grid is as many blocks as the card holds at once.
+// Per-lane cells beat warp aggregation on the card by 3.4x at TPC-H Q1's
+// inputs: the warp-wide reductions, not the bytes, set that one's pace
+// (PERF.md).  The launcher's `options` bits switch parts of the design
+// off, so that chip_smoke.py can check and time each.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -44,50 +49,33 @@ namespace {
 constexpr int kMaxCols = 8;
 constexpr int kMaxDomain = 256;
 constexpr int kRowsPerLane = 4;
-constexpr int kStep = 32 * kRowsPerLane;  // rows a warp takes a step
-constexpr int kWarpCopyMaxBytes = 3072;   // per-warp accumulators up to this
-constexpr int kMaxThreads = 512;
+constexpr int kStep = 32 * kRowsPerLane;      // rows a warp takes a step
+constexpr int kThreads = 256;
+constexpr int kLaneBytesMax = 48 * 1024;      // per-lane cells up to this
+constexpr int kWarpCopyMaxBytes = 3072;       // per-warp copies up to this
 
 // options bits
-constexpr int kOptGroupLoop = 1;   // peers and sums by a loop over the warp's groups
-constexpr int kOptNoWarpAgg = 2;   // one shared atomic per row and column
-constexpr int kOptScalar = 4;      // no vector loads
-constexpr int kOptBlockCopy = 8;   // one accumulator copy per block
-constexpr int kOpt512 = 16;        // 512 threads a block instead of 256
-constexpr int kOptOldGrid = 32;    // 4 blocks per SM (the first design)
-constexpr int kOptWide = 64;       // every sum in three pieces, even narrow ones
-constexpr int kOptNoLanes = 128;   // warp aggregation where per-lane copies fit
-constexpr int kOptAll = 255;
-constexpr int kLaneCopyMaxBytes = 48 * 1024;  // per-lane accumulators up to this
-
-enum Agg { kPeers = 0, kGroupLoop = 1, kAtomic = 2, kLanes = 3 };
+constexpr int kOptNoLanes = 1;  // warp aggregation even where per-lane cells fit
+constexpr int kOptScalar = 2;   // no vector loads
+constexpr int kOptAll = 3;
 
 struct Params {
   const int* gid;
-  const long long* sum_vals[kMaxCols];       // sum column s adds sum_vals[s] ...
-  signed char sum_cnt[kMaxCols];             // ... where count column sum_cnt[s]'s mask holds
+  const long long* sum_vals[kMaxCols];       // sum column s adds sum_vals[s] where
+  signed char sum_cnt[kMaxCols];             // count column sum_cnt[s]'s mask holds
   const unsigned char* cnt_masks[kMaxCols];  // count column c counts cnt_masks[c]
                                              // (null: the live rows)
   signed char item_sum[kMaxCols];  // output column j: sum column (-1: none)
   signed char item_cnt[kMaxCols];  // output column j: count column
   int ns, nc, k, domain;
   long long n;
-  int per_warp;  // 1: one accumulator copy per warp; 0: one per block
-  int wide;      // 1: no single-piece sums
+  int per_warp;  // warp aggregation: 1, one copy per warp; 0, one per block
   unsigned long long* sums;    // [domain, k], zeroed by the caller
   unsigned long long* counts;  // [domain, k], zeroed by the caller
 };
 
-__device__ __forceinline__ void add_to(unsigned long long* a, unsigned long long x,
-                                       bool plain) {
-  if (plain)
-    *a += x;
-  else
-    atomicAdd(a, x);
-}
-
-// A lane's 4 group ids of step `st` (-1 past the end): rows base + 4*lane + i
-// when `vec`, else base + 32*i + lane.
+// A lane's 4 group ids of the step at `base` (-1 past the end): rows
+// base + 4*lane + i when `vec`, else base + 32*i + lane.
 __device__ __forceinline__ void load_gid(const Params& p, long long base, int lane, bool vec,
                                          int (&g)[kRowsPerLane]) {
   if (vec) {
@@ -102,67 +90,50 @@ __device__ __forceinline__ void load_gid(const Params& p, long long base, int la
   }
 }
 
-// The sum over the lanes of `peers` of each lane's x, exact mod 2^64:
-// narrow values (all in [-2^25, 2^25) across the warp) in one 32-bit
-// reduction, others in three pieces of 21/21/22 bits, each < 2^27 summed.
-template <int kAgg>
+// The sum of x over the lanes of `peers`, exact mod 2^64 (`narrow`: every
+// lane's x lies in [-2^25, 2^25), so 32 of them sum in an int).
 __device__ __forceinline__ unsigned long long peer_sum(unsigned long long x, unsigned peers,
                                                        bool narrow) {
-  if (narrow) {
-    const int r = kAgg == kPeers ? __reduce_add_sync(peers, (int)x)
-                                 : __reduce_add_sync(~0u, peers >> (threadIdx.x & 31) & 1u ? (int)x : 0);
-    return (unsigned long long)(long long)r;
-  }
-  const unsigned p0 = (unsigned)(x & 0x1FFFFFULL);
-  const unsigned p1 = (unsigned)((x >> 21) & 0x1FFFFFULL);
-  const unsigned p2 = (unsigned)(x >> 42);
-  unsigned long long r0, r1, r2;
-  if (kAgg == kPeers) {
-    r0 = __reduce_add_sync(peers, p0);
-    r1 = __reduce_add_sync(peers, p1);
-    r2 = __reduce_add_sync(peers, p2);
-  } else {  // peers holds this lane for the group being summed
-    const bool in = peers >> (threadIdx.x & 31) & 1u;
-    r0 = __reduce_add_sync(~0u, in ? p0 : 0u);
-    r1 = __reduce_add_sync(~0u, in ? p1 : 0u);
-    r2 = __reduce_add_sync(~0u, in ? p2 : 0u);
-  }
+  if (narrow) return (unsigned long long)(long long)__reduce_add_sync(peers, (int)x);
+  const unsigned long long r0 = __reduce_add_sync(peers, (unsigned)(x & 0x1FFFFFULL));
+  const unsigned long long r1 = __reduce_add_sync(peers, (unsigned)((x >> 21) & 0x1FFFFFULL));
+  const unsigned long long r2 = __reduce_add_sync(peers, (unsigned)(x >> 42));
   return r0 + (r1 << 21) + (r2 << 42);
 }
 
-template <int kAgg, bool kVec>
-__global__ void __launch_bounds__(kMaxThreads)
+// Two blocks an SM: a thread may take 128 registers, which hold a step's
+// loads (8 value columns * 4 rows * 8 B) without spilling.
+template <bool kLanes, bool kVec>
+__global__ void __launch_bounds__(kThreads, 2)
 smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
   extern __shared__ unsigned long long acc[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  const int width = p.ns + p.nc;  // sum columns, then count columns
+  const int width = p.ns + p.nc;  // a slot's sum columns, then its count columns
   const int copy = p.domain * width;
-  // kLanes: 32-bit cells [slot][lane] (a lane's own cell: no two lanes of a
-  // warp share one, and no bank conflict), in three planes: the low and the
-  // high words of the sums, then the counts; the folded slots after them
+  // kLanes: 32-bit cells [slot][lane] in three planes, the low and the high
+  // words of the sums, then the counts; the folded slots after them
   unsigned* cells = reinterpret_cast<unsigned*>(acc);
   const int sum_cells = p.domain * p.ns * 32;
   const int ncells = 2 * sum_cells + p.domain * p.nc * 32;  // a multiple of 32
-  unsigned long long* res = kAgg == kLanes ? acc + ncells / 2 : acc;
-  const int total = kAgg == kLanes ? ncells / 2 : p.per_warp ? copy * warps : copy;
+  unsigned long long* res = kLanes ? acc + ncells / 2 : acc;
+  const int total = kLanes ? ncells / 2 : p.per_warp ? copy * warps : copy;
   for (int i = threadIdx.x; i < total; i += blockDim.x) acc[i] = 0ULL;
   __syncthreads();
-  unsigned long long* my = acc + (p.per_warp ? warp * copy : 0);
   unsigned* lo32 = cells + lane;
   unsigned* hi32 = cells + sum_cells + lane;
   unsigned* cnt32 = cells + 2 * sum_cells + lane;
-  const bool plain = kAgg != kAtomic && p.per_warp;  // one writer per address
+  unsigned long long* my = acc + (p.per_warp ? warp * copy : 0);
 
   const long long steps = (p.n + kStep - 1) / kStep;
   const long long stride = (long long)gridDim.x * warps;
   long long st = (long long)blockIdx.x * warps + warp;
-  int gn[kRowsPerLane];  // the next step's group ids, loaded a step ahead
+  int gn[kRowsPerLane];  // the next step's group ids
   if (st < steps) load_gid(p, st * kStep, lane, kVec && st * kStep + kStep <= p.n, gn);
   for (; st < steps; st += stride) {
     const long long base = st * kStep;
-    const bool vec = kVec && base + kStep <= p.n;  // the ragged step: row by row
+    const bool vec = kVec && base + kStep <= p.n;
     int g[kRowsPerLane];
 #pragma unroll
     for (int i = 0; i < kRowsPerLane; ++i) g[i] = gn[i];
@@ -173,10 +144,9 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
 #pragma unroll
     for (int i = 0; i < kRowsPerLane; ++i)
       live |= (unsigned)g[i] < (unsigned)p.domain ? 1u << i : 0u;
-    if (!__any_sync(~0u, live)) continue;  // a dead step loads nothing more
+    if (!__any_sync(~0u, live)) continue;
 
-    // every load of the step first, then the warp-wide work: the loads of
-    // one step are in flight together
+    // every load of the step, then the work
     unsigned mw[kMaxCols];  // vec: the 4 mask bytes; else: 4 mask bits
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
@@ -208,7 +178,7 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
           if ((live >> i) & 1u) v[s][i] = __ldg(vp + base + 32 * i + lane);
       }
     }
-    unsigned mb[kMaxCols];  // bit i: row i live and valid under count column c's mask
+    unsigned mb[kMaxCols];  // bit i: row i is live and valid under count column c
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
       if (p.cnt_masks[c] == nullptr) {
@@ -223,42 +193,35 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
       }
     }
 
-    // each lane's group mates, and whether it leads them, per row
+    // warp aggregation: each lane's group mates, and whether it leads them
     unsigned peers[kRowsPerLane];
-    unsigned lead = 0;  // bit i: this lane leads its group in row i
-    if (kAgg == kPeers || kAgg == kGroupLoop) {
+    unsigned lead = 0;  // bit i: this lane is the lowest of its group in row i
+    if (!kLanes) {
 #pragma unroll
       for (int i = 0; i < kRowsPerLane; ++i) {
         const bool li = (live >> i) & 1u;
-        if (kAgg == kPeers) {
-          peers[i] = __match_any_sync(~0u, li ? g[i] : -1);
-        } else {
-          unsigned todo = __ballot_sync(~0u, li), mp = 0;
-          while (todo) {
-            const int gl = __shfl_sync(~0u, g[i], __ffs(todo) - 1);
-            const unsigned pg = __ballot_sync(~0u, li && g[i] == gl);
-            if (li && g[i] == gl) mp = pg;
-            todo &= ~pg;
-          }
-          peers[i] = mp;
-        }
+        peers[i] = __match_any_sync(~0u, li ? g[i] : -1);
         if (li && __ffs(peers[i]) - 1 == lane) lead |= 1u << i;
       }
     }
+    // one writer per address of a per-warp copy: a plain add
+    auto add = [&](unsigned long long* a, unsigned long long x) {
+      if (p.per_warp)
+        *a += x;
+      else
+        atomicAdd(a, x);
+    };
 
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
       if (c >= p.nc) break;
 #pragma unroll
       for (int i = 0; i < kRowsPerLane; ++i) {
-        if (kAgg == kLanes) {
+        if (kLanes) {
           if ((mb[c] >> i) & 1u) atomicAdd(&cnt32[(g[i] * p.nc + c) * 32], 1u);
-        } else if (kAgg == kAtomic) {
-          if ((mb[c] >> i) & 1u) atomicAdd(&my[g[i] * width + p.ns + c], 1ULL);
         } else {
           const unsigned b = __ballot_sync(~0u, (mb[c] >> i) & 1u);
-          if ((lead >> i) & 1u)
-            add_to(&my[g[i] * width + p.ns + c], __popc(peers[i] & b), plain);
+          if ((lead >> i) & 1u) add(&my[g[i] * width + p.ns + c], __popc(peers[i] & b));
           __syncwarp();
         }
       }
@@ -267,14 +230,14 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
 #pragma unroll
     for (int s = 0; s < kMaxCols; ++s) {
       if (s >= p.ns) break;
-      unsigned ok = 0;  // count column sum_cnt[s]'s bits
+      unsigned ok = 0;  // the bits of count column sum_cnt[s]
 #pragma unroll
       for (int c = 0; c < kMaxCols; ++c)
         if (c == p.sum_cnt[s]) ok = mb[c];
 #pragma unroll
       for (int i = 0; i < kRowsPerLane; ++i) {
         const unsigned long long x = ((ok >> i) & 1u) ? v[s][i] : 0ULL;
-        if (kAgg == kLanes) {  // 64-bit add as two 32-bit ones, carry passed up
+        if (kLanes) {
           if ((ok >> i) & 1u) {
             const int cell = (g[i] * p.ns + s) * 32;
             const unsigned lo = (unsigned)x;
@@ -282,46 +245,23 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
             const unsigned hi = (unsigned)(x >> 32) + ((unsigned)(old + lo) < lo ? 1u : 0u);
             if (hi) atomicAdd(&hi32[cell], hi);
           }
-          continue;
-        }
-        if (kAgg == kAtomic) {
-          if ((ok >> i) & 1u) atomicAdd(&my[g[i] * width + s], x);
-          continue;
-        }
-        const bool narrow =
-            !p.wide && __all_sync(~0u, (x + (1ULL << 25)) < (1ULL << 26));
-        if (kAgg == kPeers) {
-          const unsigned long long r = peer_sum<kPeers>(x, peers[i], narrow);
-          if ((lead >> i) & 1u) add_to(&my[g[i] * width + s], r, plain);
         } else {
-          unsigned leaders = __ballot_sync(~0u, (lead >> i) & 1u);
-          while (leaders) {
-            const int l = __ffs(leaders) - 1;
-            leaders &= leaders - 1;
-            const unsigned long long r =
-                peer_sum<kGroupLoop>(x, __shfl_sync(~0u, peers[i], l), narrow);
-            if (lane == l) add_to(&my[g[i] * width + s], r, plain);
-          }
+          const bool narrow = __all_sync(~0u, (x + (1ULL << 25)) < (1ULL << 26));
+          const unsigned long long r = peer_sum(x, peers[i], narrow);
+          if ((lead >> i) & 1u) add(&my[g[i] * width + s], r);
+          __syncwarp();
         }
-        __syncwarp();
       }
     }
   }
   __syncthreads();
 
-  if (p.per_warp) {  // fold the warps' copies into the first
-    for (int i = threadIdx.x; i < copy; i += blockDim.x) {
-      unsigned long long x = acc[i];
-      for (int w = 1; w < warps; ++w) x += acc[w * copy + i];
-      acc[i] = x;
-    }
-    __syncthreads();
-  } else if (kAgg == kLanes) {  // fold each slot's 32 lane cells into res
+  if (kLanes) {  // fold each slot's 32 lane cells into res
     for (int i = threadIdx.x; i < copy; i += blockDim.x) {
       const int gg = i / width, col = i - gg * width;
       unsigned long long x = 0ULL;
       for (int l = 0; l < 32; ++l) {
-        const int r = (l + i) & 31;  // no bank conflicts
+        const int r = (l + i) & 31;  // neighbouring threads, other banks
         if (col < p.ns) {
           const int cell = (gg * p.ns + col) * 32 + r;
           x += ((unsigned long long)cells[sum_cells + cell] << 32) | cells[cell];
@@ -330,6 +270,13 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
         }
       }
       res[i] = x;
+    }
+    __syncthreads();
+  } else if (p.per_warp) {  // fold the warps' copies into the first
+    for (int i = threadIdx.x; i < copy; i += blockDim.x) {
+      unsigned long long x = acc[i];
+      for (int w = 1; w < warps; ++w) x += acc[w * copy + i];
+      acc[i] = x;
     }
     __syncthreads();
   }
@@ -345,31 +292,30 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
   }
 }
 
-template <int kAgg, bool kVec>
-int launch(const Params& p, int threads, int old_grid, size_t smem, cudaStream_t stream) {
-  auto kernel = smalldomain_sum_count_kernel<kAgg, kVec>;
-  // blocks the card holds at this (threads, smem), cached per kernel
-  static int cached_threads = 0, cached_blocks = 0, cached_sms = 0, cached_dev = -1;
+template <bool kLanes, bool kVec>
+int launch(const Params& p, size_t smem, cudaStream_t stream) {
+  auto kernel = smalldomain_sum_count_kernel<kLanes, kVec>;
+  // the blocks the card holds at once at this shared memory size
+  static int cached_blocks = 0, cached_dev = -1;
   static size_t cached_smem = 0;
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e != cudaSuccess) return (int)e;
-  if (dev != cached_dev || threads != cached_threads || smem != cached_smem) {
+  if (dev != cached_dev || smem != cached_smem) {
     int sms = 0, per_sm = 0;
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
     if (e != cudaSuccess) return (int)e;
     if (sms < 1 || per_sm < 1) return (int)cudaErrorInvalidConfiguration;
     cached_blocks = sms * per_sm;
-    cached_sms = sms;
-    cached_dev = dev; cached_threads = threads; cached_smem = smem;
+    cached_dev = dev;
+    cached_smem = smem;
   }
-  long long blocks = old_grid ? 4LL * cached_sms : cached_blocks;
-  const long long warps = threads / 32;
+  const long long warps = kThreads / 32;
   const long long want = ((p.n + kStep - 1) / kStep + warps - 1) / warps;
-  if (want < blocks) blocks = want;
-  kernel<<<(int)blocks, threads, smem, stream>>>(p);
+  const int blocks = (int)(want < cached_blocks ? want : cached_blocks);
+  kernel<<<blocks, kThreads, smem, stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -379,17 +325,16 @@ int launch(const Params& p, int threads, int old_grid, size_t smem, cudaStream_t
 // column whose mask each sum column takes; cnt_masks: nc mask pointers
 // (null: count the live rows); item_sum/item_cnt: k column indices
 // (item_sum -1: a count-only item).  sums/counts: [domain, k] int64,
-// zeroed by the caller.  `options`: the kOpt* bits above, 0 for the design
-// in the header.  Returns cudaGetLastError() after the launch (0 on
-// success).
+// zeroed by the caller.  `options`: the kOpt* bits above, 0 for the whole
+// design.  Returns cudaGetLastError() after the launch (0 on success).
 extern "C" int smalldomain_sum_count_launch(
     const void* gid, long long n, int domain, int ns, const void* const* sum_vals,
     const signed char* sum_cnt, int nc, const void* const* cnt_masks, int k,
     const signed char* item_sum, const signed char* item_cnt, void* sums, void* counts,
     int options, void* stream) {
+  // a lane's 32-bit count cells take at most a 32nd of the rows: n < 2^36
   if (k < 1 || k > kMaxCols || ns < 0 || ns > kMaxCols || nc < 1 || nc > kMaxCols ||
-      domain < 1 || domain > kMaxDomain || n < 0 || n >= (1LL << 36) ||  // 32-bit cells:
-      (options & ~kOptAll))                        // a lane's share of n rows < 2^32
+      domain < 1 || domain > kMaxDomain || n < 0 || n >= (1LL << 36) || (options & ~kOptAll))
     return (int)cudaErrorInvalidValue;
   Params p = {};
   p.gid = (const int*)gid;
@@ -407,18 +352,16 @@ extern "C" int smalldomain_sum_count_launch(
     p.item_cnt[j] = item_cnt[j];
   }
   p.ns = ns; p.nc = nc; p.k = k; p.domain = domain; p.n = n;
-  p.wide = (options & kOptWide) != 0;
   p.sums = (unsigned long long*)sums;
   p.counts = (unsigned long long*)counts;
   if (n == 0) return 0;
 
-  const int threads = (options & kOpt512) ? 512 : 256;
+  // shared memory, at most 48 KB: the static limit, no opt-in needed
   const size_t copy = (size_t)domain * (ns + nc) * sizeof(unsigned long long);
   const size_t lane_bytes = (size_t)domain * (2 * ns + nc) * 32 * sizeof(unsigned) + copy;
-  const bool lanes = !(options & (kOptNoLanes | kOptNoWarpAgg | kOptGroupLoop | kOptBlockCopy)) &&
-                     lane_bytes <= (size_t)kLaneCopyMaxBytes;
-  p.per_warp = !lanes && !(options & kOptBlockCopy) && copy <= (size_t)kWarpCopyMaxBytes;
-  const size_t smem = lanes ? lane_bytes : p.per_warp ? copy * (threads / 32) : copy;  // <= 48 KB
+  const bool lanes = !(options & kOptNoLanes) && lane_bytes <= kLaneBytesMax;
+  p.per_warp = !lanes && copy <= kWarpCopyMaxBytes;
+  const size_t smem = lanes ? lane_bytes : p.per_warp ? copy * (kThreads / 32) : copy;
 
   // 16-byte loads need 16-byte aligned group ids and values, 4-byte masks
   bool aligned = ((uintptr_t)gid & 15) == 0;
@@ -426,18 +369,7 @@ extern "C" int smalldomain_sum_count_launch(
   for (int c = 0; c < nc; ++c) aligned = aligned && ((uintptr_t)p.cnt_masks[c] & 3) == 0;
   const bool vec = aligned && !(options & kOptScalar);
 
-  const int old_grid = options & kOptOldGrid;
   cudaStream_t st = (cudaStream_t)stream;
-  const int agg = lanes ? kLanes : (options & kOptNoWarpAgg) ? kAtomic
-                : (options & kOptGroupLoop) ? kGroupLoop : kPeers;
-  switch (agg * 2 + (vec ? 1 : 0)) {
-    case kLanes * 2 + 1: return launch<kLanes, true>(p, threads, old_grid, smem, st);
-    case kLanes * 2: return launch<kLanes, false>(p, threads, old_grid, smem, st);
-    case kPeers * 2 + 1: return launch<kPeers, true>(p, threads, old_grid, smem, st);
-    case kPeers * 2: return launch<kPeers, false>(p, threads, old_grid, smem, st);
-    case kGroupLoop * 2 + 1: return launch<kGroupLoop, true>(p, threads, old_grid, smem, st);
-    case kGroupLoop * 2: return launch<kGroupLoop, false>(p, threads, old_grid, smem, st);
-    case kAtomic * 2 + 1: return launch<kAtomic, true>(p, threads, old_grid, smem, st);
-    default: return launch<kAtomic, false>(p, threads, old_grid, smem, st);
-  }
+  if (lanes) return vec ? launch<true, true>(p, smem, st) : launch<true, false>(p, smem, st);
+  return vec ? launch<false, true>(p, smem, st) : launch<false, false>(p, smem, st);
 }
