@@ -6,22 +6,21 @@ Phases (each raises, and the script exits non-zero, on failure):
   1. device  - a CUDA card must be present; prints its name and power limit
   2. build   - compiles every kernel under datafusion_tpu_torch/csrc with
                nvcc (one process per source, all at once); prints seconds,
-               ptxas' registers / shared memory / spills and the atomic and
-               warp-reduction opcodes of the machine code
+               ptxas' registers / shared memory / spills and the shared
+               atomic opcodes of the machine code
   3. kernels - each kernel against its plain PyTorch version on the card,
-               at the main path's shapes and at edge cases (K1_CASES);
-               exact equality
+               at the main path's shapes and at edge cases (K1_CASES of
+               datafusion_tpu_torch/ops/smalldomain_cases.py); exact
   4. main    - TPC-H Q1 at SF1 through ExecutionContext().sql(q1).collect(),
                checked against an independent numpy oracle, with every
                kernel's launch count read around the run; then K1 at the
-               main path's own inputs, in its design and with each part
-               of the design switched off (K1_VARIANTS), exact each time
+               main path's own inputs, exact
   5. timing  - printed, never asserted: Q1 warm medians of 5 runs, five
                times over, and their spread; a profile of one warm Q1;
                each kernel's device time alone (torch.profiler, per launch
                over many launches) and around its wrapper (CUDA events),
                beside its byte bound, its plain version and the one-call
-               PyTorch yardstick; K1's time in each variant
+               PyTorch yardstick; K1 alone at a few other shapes
 The last two lines are the kernels JSON line and the ok JSON line.
 """
 
@@ -43,6 +42,7 @@ import torch
 from datafusion_tpu_torch import ExecutionContext
 from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
 from datafusion_tpu_torch.ops import smalldomain as SD
+from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
 from datafusion_tpu_torch.physical import stage_compiler
 from datafusion_tpu_torch.q1data import (
     LINESTATUSES,
@@ -77,9 +77,9 @@ def card() -> str:
 
 
 def sass_ops(name: str) -> str:
-    """How often each shared-memory atomic and warp-wide reduction opcode
-    occurs in the kernel library's machine code (cuobjdump -sass): a 64-bit
-    shared atomicAdd shows as ATOMS.CAST.SPIN.64, a compare-and-swap loop."""
+    """How often each shared-memory atomic opcode occurs in the kernel
+    library's machine code (cuobjdump -sass): a 64-bit shared atomicAdd
+    shows as ATOMS.CAST.SPIN.64, a compare-and-swap loop."""
     tool = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "cuobjdump"
     if not tool.exists():
         return "cuobjdump not found"
@@ -87,7 +87,7 @@ def sass_ops(name: str) -> str:
                          capture_output=True, text=True, timeout=120)
     if out.returncode != 0:
         return f"cuobjdump failed (rc {out.returncode})"
-    ops = collections.Counter(re.findall(r"\b((?:ATOMS|REDUX|MATCH)\.[A-Z0-9.]+)", out.stdout))
+    ops = collections.Counter(re.findall(r"\b(ATOMS\.[A-Z0-9.]+)", out.stdout))
     return ", ".join(f"{op} x{n}" for op, n in sorted(ops.items()))
 
 
@@ -110,87 +110,8 @@ def cuda_ms(fn, iters: int) -> float:
 # ---------------------------------------------------------------------------
 
 
-def k1_inputs(rng, n, domain, k, lo, hi, dead_frac=0.05, none_vals=(), none_masks=()):
-    dev = torch.device("cuda")
-    gid = rng.integers(0, domain, n).astype(np.int32)
-    gid[rng.random(n) < dead_frac] = domain  # dead rows
-    cols, masks = [], []
-    for j in range(k):
-        cols.append(None if j in none_vals else
-                    torch.from_numpy(rng.integers(lo, hi, n, dtype=np.int64)).to(dev))
-        masks.append(None if j in none_masks else
-                     torch.from_numpy(rng.random(n) > 0.1).to(dev))
-    return torch.from_numpy(gid).to(dev), cols, masks, domain
-
-
-def with_gid(args, gid):
-    """The same columns under other group ids (a numpy array)."""
-    return (torch.from_numpy(gid.astype(np.int32)).to(args[0].device), *args[1:])
-
-
-def duplicate_pointers(rng):
-    """Items that share tensors, as Q1's sum and avg of one column do."""
-    gid, c, m, domain = k1_inputs(rng, 1 << 20, 12, 3, -(10**12), 10**12)
-    return gid, [c[0], c[0], c[1], c[1], c[2], None, c[0]], [m[0], m[0], m[0], None, m[1], None, m[2]], domain
-
-
-def misaligned(rng):
-    """Columns and masks that start one element into their storage: the
-    kernel loads them row by row instead of 16 bytes at a time."""
-    gid, c, m, domain = k1_inputs(rng, (1 << 20) + 1, 9, 3, -(10**9), 10**9, none_masks=(2,))
-    return gid[1:], [x[1:] for x in c], [None if x is None else x[1:] for x in m], domain
-
-
-def rows(n):
-    return np.arange(n, dtype=np.int64)
-
-
-# name -> builder(rng) -> (gid, cols, masks, domain) on the card; every case
-# is held exactly against the plain version (tests/test_torch_gpu.py too)
-K1_CASES = {
-    "q1-sf1-shape": lambda rng: k1_inputs(rng, 8_388_608, 12, 8, 0, 1_050_000_000,
-                                          none_vals=(7,), none_masks=(7,)),
-    "domain256": lambda rng: k1_inputs(rng, 1 << 20, 256, 8, -(10**14), 10**14,
-                                       none_vals=(2,), none_masks=(5,)),
-    "wrapping": lambda rng: k1_inputs(rng, 1 << 20, 5, 3, (1 << 62) - 1000, 1 << 62),
-    "wrapping-negative": lambda rng: k1_inputs(rng, 1 << 20, 5, 2, -(1 << 62), -(1 << 62) + 1000),
-    "n-not-block-multiple": lambda rng: k1_inputs(rng, 1_000_003, 7, 4, -1000, 1000),
-    "all-dead": lambda rng: with_gid(k1_inputs(rng, 65_536, 4, 1, 0, 10), np.full(65_536, 9)),
-    "duplicate-pointers": duplicate_pointers,
-    "every-mask-null": lambda rng: k1_inputs(rng, 1 << 20, 12, 6, -(10**9), 10**9,
-                                             none_vals=(5,), none_masks=range(6)),
-    "one-group": lambda rng: with_gid(k1_inputs(rng, 1 << 20, 12, 8, -(10**15), 10**15),
-                                      np.where(rows(1 << 20) % 101 == 0, 12, 3)),
-    "gid-row-mod-32": lambda rng: with_gid(k1_inputs(rng, 1 << 20, 40, 4, -(10**9), 10**9),
-                                           rows(1 << 20) % 32),
-    "32-groups-a-warp-row": lambda rng: with_gid(k1_inputs(rng, 1 << 20, 40, 4, -(10**9), 10**9),
-                                                 rows(1 << 20) // 4 % 32 + 3),
-    # 8 distinct masked items: 8 sum and 8 count columns.  Per-lane cells
-    # take 24 * 128 + 16 * 8 = 3,200 B a slot and at most 48 KB: 15 slots.
-    # Beyond, per-warp copies take 128 B a slot and at most 3,072 B: 24.
-    "lane-cells-at-limit": lambda rng: k1_inputs(rng, 1 << 20, 15, 8, -(10**12), 10**12),
-    "lane-cells-over-limit": lambda rng: k1_inputs(rng, 1 << 20, 16, 8, -(10**12), 10**12),
-    "per-warp-copy-at-limit": lambda rng: k1_inputs(rng, 1 << 20, 24, 8, -(10**12), 10**12),
-    "per-warp-copy-over-limit": lambda rng: k1_inputs(rng, 1 << 20, 25, 8, -(10**12), 10**12),
-    "n-3": lambda rng: k1_inputs(rng, 3, 2, 2, -5, 5, dead_frac=0.0),
-    "negative-gids": lambda rng: with_gid(k1_inputs(rng, 1_000_003, 10, 3, -(10**9), 10**9),
-                                          rng.integers(-7, 13, 1_000_003)),
-    "wrapping-both-signs": lambda rng: k1_inputs(rng, 1 << 20, 3, 2, -(1 << 62), 1 << 62),
-    "misaligned": misaligned,
-}
-
-# name -> (options bits of csrc/smalldomain_sum_count.cu, dedup): the
-# design, and parts of it switched off
-K1_VARIANTS = {
-    "design": (0, True),
-    "(a) off: every item summed and counted apart": (0, False),
-    "warp aggregation instead of per-lane cells": (1, True),
-    "row-by-row loads": (2, True),
-}
-
-
-def k1_check(name, gid, cols, masks, domain, options=0, dedup=True) -> int:
-    sums, cnts = SD.smalldomain_sum_count(gid, cols, masks, domain, options=options, dedup=dedup)
+def k1_check(name, gid, cols, masks, domain) -> int:
+    sums, cnts = SD.smalldomain_sum_count(gid, cols, masks, domain)
     torch.cuda.synchronize()
     ps, pc = SD.smalldomain_sum_count_plain(gid, cols, masks, domain)
     err = max(
@@ -214,12 +135,12 @@ def phase_kernels() -> int:
             s, c = SD.smalldomain_sum_count(*args)
             if int(s.abs().sum()) or int(c.sum()):
                 raise AssertionError("K1 all-dead: non-zero output")
-        for variant, (options, dedup) in K1_VARIANTS.items():
-            if name in ("domain256", "32-groups-a-warp-row", "duplicate-pointers", "misaligned",
-                        "wrapping-both-signs", "lane-cells-at-limit"):
-                err = max(err, k1_check(f"{name} / {variant}", *args, options, dedup))
         del args
     return err
+
+
+# K1 cases timed besides Q1's inputs (cell copies 8, 2 and 2)
+K1_TIMED_CASES = ("8-copies-at-limit", "2-copies", "one-group-2-copies")
 
 
 # ---------------------------------------------------------------------------
@@ -357,26 +278,32 @@ def k1_library_call(gid, cols, masks, domain):
     return lambda: out.zero_().index_add_(0, g, stacked)
 
 
-def kernel_only_ms(fn, kernel: str, iters: int = 200) -> float:
+def kernel_only_ms(fn, kernel: str, iters: int = 200, tries: int = 3):
     """The device time of the kernel named ``kernel`` alone, per launch,
     from torch.profiler over ``iters`` calls of ``fn`` (after one warm-up):
     the wrapper's allocation, fill and host overhead are left out.  The
-    profiler may drop a few kernel records; the mean is over those it kept,
-    at least half of them."""
+    profiler may drop a few kernel records; a window in which it kept
+    fewer than 95 % of them is measured again, up to ``tries`` windows.
+    Returns (ms, the launches it kept)."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    evs = [e for e in prof.key_averages()
-           if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
-    launches = sum(e.count for e in evs)
-    if not iters // 2 <= launches <= iters:
-        raise AssertionError(f"profiler saw {launches} launches of {kernel} in {iters} calls")
-    return sum(e.self_device_time_total for e in evs) / 1e3 / launches
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA and kernel in e.key]
+        kept = sum(e.count for e in evs)
+        if kept > iters:
+            raise AssertionError(f"profiler saw {kept} launches of {kernel} in {iters} calls")
+        if kept >= 0.95 * iters:
+            return sum(e.self_device_time_total for e in evs) / 1e3 / kept, kept
+        log(f"[timing] profiler kept {kept} of {iters} launches of {kernel}; measuring again")
+    raise AssertionError(f"profiler kept under 95 % of {iters} launches of {kernel} "
+                         f"in {tries} windows")
 
 
 def profile_q1(ctx, sql: str, name_power: str) -> None:
@@ -405,6 +332,23 @@ def profile_q1(ctx, sql: str, name_power: str) -> None:
         f"{sum(e.count for e in kernels)} launches")
 
 
+def time_k1_cases(name_power: str, kname: str) -> None:
+    """K1 alone at shapes with fewer cell copies than Q1's 32: many slots,
+    and all rows in one slot of 256 (the most contention), beside their
+    byte bounds and the library call."""
+    rng = np.random.default_rng(SEED)
+    for name in K1_TIMED_CASES:
+        args = K1_CASES[name](rng)
+        ms, kept = kernel_only_ms(lambda: SD.smalldomain_sum_count(*args), kname)
+        bound_ms = k1_bound_ms(*args)
+        library_ms = cuda_ms(k1_library_call(*args), 5)
+        log(f"[shapes] {name_power}: smalldomain_sum_count {name} (N={args[0].shape[0]}, "
+            f"domain={args[3]}, k={len(args[1])}): {ms:.4f} ms kernel alone ({kept} of 200 "
+            f"launches), byte bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of bound), "
+            f"index_add_ {library_ms:.4f} ms")
+        del args
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -424,8 +368,7 @@ def main() -> int:
 
     sql = get_query_sql(1)
     ctx, launches, args = phase_main(sql)
-    for variant, (options, dedup) in K1_VARIANTS.items():
-        err = max(err, k1_check(f"q1-main-path-inputs / {variant}", *args, options, dedup))
+    err = max(err, k1_check("q1-main-path-inputs", *args))
 
     runs = []
     for i in range(2 + 5 * Q1_BATCHES):
@@ -444,19 +387,15 @@ def main() -> int:
     kname = "smalldomain_sum_count_kernel"
     bound_ms = k1_bound_ms(*args)
     shape = f"N={args[0].shape[0]}, domain={args[3]}, k={len(args[1])}"
-    for variant, (options, dedup) in K1_VARIANTS.items():
-        t = kernel_only_ms(
-            lambda: SD.smalldomain_sum_count(*args, options=options, dedup=dedup), kname)
-        log(f"[variants] {name_power}: K1 at Q1 SF1 ({shape}) {variant}: {t:.4f} ms kernel "
-            f"alone, {bound_ms / t:.1%} of the byte bound")
-    ms = kernel_only_ms(lambda: SD.smalldomain_sum_count(*args), kname, 400)
+    ms, kept = kernel_only_ms(lambda: SD.smalldomain_sum_count(*args), kname, 400)
     wrapper_ms = cuda_ms(lambda: SD.smalldomain_sum_count(*args), 200)
     plain_ms = cuda_ms(lambda: SD.smalldomain_sum_count_plain(*args), 3)
     library_ms = cuda_ms(k1_library_call(*args), 5)
     log(f"[timing] {name_power}: smalldomain_sum_count at Q1 SF1 ({shape}): {ms:.4f} ms "
-        f"kernel alone (torch.profiler, 400 launches), {wrapper_ms:.4f} ms around the wrapper "
+        f"kernel alone (torch.profiler, {kept} of 400 launches), {wrapper_ms:.4f} ms around the wrapper "
         f"(CUDA events, 200 calls); byte bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of bound); "
         f"plain {plain_ms:.4f} ms; index_add_ {library_ms:.4f} ms")
+    time_k1_cases(name_power, kname)
 
     kernels = [{
         "name": "smalldomain_sum_count",
@@ -466,6 +405,7 @@ def main() -> int:
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
+        "ms_launches_kept": kept,
         "wrapper_ms": wrapper_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,

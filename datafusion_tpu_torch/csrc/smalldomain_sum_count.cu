@@ -20,26 +20,17 @@
 //     group ids are loaded a step ahead.  A step whose rows are all dead
 //     loads no value or mask, nor does a lane whose 4 rows are all dead.
 //     Unaligned inputs and the ragged last step load row by row.
-//   - per-lane cells: each lane adds its rows into its own 32-bit cells in
-//     shared memory, one per (slot, column), [slot][lane], so no two lanes
-//     of a warp meet at a cell or a bank; the block's warps share the
-//     cells through native 32-bit shared atomics.  A 64-bit sum is two
-//     32-bit adds, the carry out of the low word passed up.  (A 64-bit
+//   - cells: each (slot, column) has `copies` 32-bit cells in shared
+//     memory, [slot][column][copy], and lane l adds into copy l % copies
+//     with native 32-bit shared atomics.  `copies` is the largest power of
+//     two up to 32 at which the cells fit in 48 KB: at 32 (TPC-H Q1) no two
+//     lanes of a warp meet at a cell or a bank; with many slots there are
+//     fewer copies, but rows also spread over more cells.  A 64-bit sum is
+//     two 32-bit adds, the carry out of the low word passed up.  (A 64-bit
 //     shared atomicAdd compiles to a compare-and-swap loop on sm_90a.)
-//     At the end each slot's 32 cells fold into one 64-bit value.
-//   - where the cells do not fit in kLaneBytesMax (domain * columns
-//     large), warps aggregate instead: __match_any_sync gives each lane
-//     the lanes of its group, a count is __popc(peers & ballot), a sum is
-//     __reduce_add_sync over the peers (one 32-bit reduction when every
-//     value of the warp lies in [-2^25, 2^25), else three of 21/21/22-bit
-//     pieces), and only the group's lowest lane adds it, into a copy per
-//     warp when that fits in kWarpCopyMaxBytes, else into one per block.
-//   - the block adds each non-zero slot into the global outputs with one
-//     atomic; the grid is as many blocks as the card holds at once.
-// Per-lane cells beat warp aggregation on the card by 3.4x at TPC-H Q1's
-// inputs: the warp-wide reductions, not the bytes, set that one's pace
-// (PERF.md).  The launcher's `options` bits switch parts of the design
-// off, so that chip_smoke.py can check and time each.
+//   - the block folds each output's copies into one 64-bit value and adds
+//     it, when non-zero, into the global outputs with one atomic; the grid
+//     is as many blocks as the card holds at once, two an SM.
 
 #include <cstdint>
 #include <cuda_runtime.h>
@@ -49,15 +40,11 @@ namespace {
 constexpr int kMaxCols = 8;
 constexpr int kMaxDomain = 256;
 constexpr int kRowsPerLane = 4;
-constexpr int kStep = 32 * kRowsPerLane;      // rows a warp takes a step
+constexpr int kStep = 32 * kRowsPerLane;  // rows a warp takes a step
 constexpr int kThreads = 256;
-constexpr int kLaneBytesMax = 48 * 1024;      // per-lane cells up to this
-constexpr int kWarpCopyMaxBytes = 3072;       // per-warp copies up to this
-
-// options bits
-constexpr int kOptNoLanes = 1;  // warp aggregation even where per-lane cells fit
-constexpr int kOptScalar = 2;   // no vector loads
-constexpr int kOptAll = 3;
+constexpr int kBlocksPerSM = 2;
+constexpr int kCellBytesMax = 48 * 1024;  // the static shared-memory limit
+constexpr int kMaxCopiesLog2 = 5;         // 32 copies: one a lane
 
 struct Params {
   const int* gid;
@@ -68,8 +55,8 @@ struct Params {
   signed char item_sum[kMaxCols];  // output column j: sum column (-1: none)
   signed char item_cnt[kMaxCols];  // output column j: count column
   int ns, nc, k, domain;
+  int shift;  // log2 of the cell copies of a (slot, column)
   long long n;
-  int per_warp;  // warp aggregation: 1, one copy per warp; 0, one per block
   unsigned long long* sums;    // [domain, k], zeroed by the caller
   unsigned long long* counts;  // [domain, k], zeroed by the caller
 };
@@ -90,41 +77,26 @@ __device__ __forceinline__ void load_gid(const Params& p, long long base, int la
   }
 }
 
-// The sum of x over the lanes of `peers`, exact mod 2^64 (`narrow`: every
-// lane's x lies in [-2^25, 2^25), so 32 of them sum in an int).
-__device__ __forceinline__ unsigned long long peer_sum(unsigned long long x, unsigned peers,
-                                                       bool narrow) {
-  if (narrow) return (unsigned long long)(long long)__reduce_add_sync(peers, (int)x);
-  const unsigned long long r0 = __reduce_add_sync(peers, (unsigned)(x & 0x1FFFFFULL));
-  const unsigned long long r1 = __reduce_add_sync(peers, (unsigned)((x >> 21) & 0x1FFFFFULL));
-  const unsigned long long r2 = __reduce_add_sync(peers, (unsigned)(x >> 42));
-  return r0 + (r1 << 21) + (r2 << 42);
-}
-
 // Two blocks an SM: a thread may take 128 registers, which hold a step's
 // loads (8 value columns * 4 rows * 8 B) without spilling.
-template <bool kLanes, bool kVec>
-__global__ void __launch_bounds__(kThreads, 2)
+template <bool kVec>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSM)
 smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
-  extern __shared__ unsigned long long acc[];
+  // three planes of cells: the low and the high words of the sums, then
+  // the counts
+  extern __shared__ unsigned cells[];
   const int lane = threadIdx.x & 31;
   const int warp = threadIdx.x >> 5;
   const int warps = blockDim.x >> 5;
-  const int width = p.ns + p.nc;  // a slot's sum columns, then its count columns
-  const int copy = p.domain * width;
-  // kLanes: 32-bit cells [slot][lane] in three planes, the low and the high
-  // words of the sums, then the counts; the folded slots after them
-  unsigned* cells = reinterpret_cast<unsigned*>(acc);
-  const int sum_cells = p.domain * p.ns * 32;
-  const int ncells = 2 * sum_cells + p.domain * p.nc * 32;  // a multiple of 32
-  unsigned long long* res = kLanes ? acc + ncells / 2 : acc;
-  const int total = kLanes ? ncells / 2 : p.per_warp ? copy * warps : copy;
-  for (int i = threadIdx.x; i < total; i += blockDim.x) acc[i] = 0ULL;
+  const int copies = 1 << p.shift;
+  const int sum_cells = (p.domain * p.ns) << p.shift;
+  const int ncells = 2 * sum_cells + ((p.domain * p.nc) << p.shift);
+  for (int i = threadIdx.x; i < ncells; i += blockDim.x) cells[i] = 0u;
   __syncthreads();
-  unsigned* lo32 = cells + lane;
-  unsigned* hi32 = cells + sum_cells + lane;
-  unsigned* cnt32 = cells + 2 * sum_cells + lane;
-  unsigned long long* my = acc + (p.per_warp ? warp * copy : 0);
+  const int mine = lane & (copies - 1);
+  unsigned* lo32 = cells + mine;
+  unsigned* hi32 = cells + sum_cells + mine;
+  unsigned* cnt32 = cells + 2 * sum_cells + mine;
 
   const long long steps = (p.n + kStep - 1) / kStep;
   const long long stride = (long long)gridDim.x * warps;
@@ -193,38 +165,12 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
       }
     }
 
-    // warp aggregation: each lane's group mates, and whether it leads them
-    unsigned peers[kRowsPerLane];
-    unsigned lead = 0;  // bit i: this lane is the lowest of its group in row i
-    if (!kLanes) {
-#pragma unroll
-      for (int i = 0; i < kRowsPerLane; ++i) {
-        const bool li = (live >> i) & 1u;
-        peers[i] = __match_any_sync(~0u, li ? g[i] : -1);
-        if (li && __ffs(peers[i]) - 1 == lane) lead |= 1u << i;
-      }
-    }
-    // one writer per address of a per-warp copy: a plain add
-    auto add = [&](unsigned long long* a, unsigned long long x) {
-      if (p.per_warp)
-        *a += x;
-      else
-        atomicAdd(a, x);
-    };
-
 #pragma unroll
     for (int c = 0; c < kMaxCols; ++c) {
       if (c >= p.nc) break;
 #pragma unroll
-      for (int i = 0; i < kRowsPerLane; ++i) {
-        if (kLanes) {
-          if ((mb[c] >> i) & 1u) atomicAdd(&cnt32[(g[i] * p.nc + c) * 32], 1u);
-        } else {
-          const unsigned b = __ballot_sync(~0u, (mb[c] >> i) & 1u);
-          if ((lead >> i) & 1u) add(&my[g[i] * width + p.ns + c], __popc(peers[i] & b));
-          __syncwarp();
-        }
-      }
+      for (int i = 0; i < kRowsPerLane; ++i)
+        if ((mb[c] >> i) & 1u) atomicAdd(&cnt32[(g[i] * p.nc + c) << p.shift], 1u);
     }
 
 #pragma unroll
@@ -236,87 +182,37 @@ smalldomain_sum_count_kernel(const __grid_constant__ Params p) {
         if (c == p.sum_cnt[s]) ok = mb[c];
 #pragma unroll
       for (int i = 0; i < kRowsPerLane; ++i) {
-        const unsigned long long x = ((ok >> i) & 1u) ? v[s][i] : 0ULL;
-        if (kLanes) {
-          if ((ok >> i) & 1u) {
-            const int cell = (g[i] * p.ns + s) * 32;
-            const unsigned lo = (unsigned)x;
-            const unsigned old = atomicAdd(&lo32[cell], lo);
-            const unsigned hi = (unsigned)(x >> 32) + ((unsigned)(old + lo) < lo ? 1u : 0u);
-            if (hi) atomicAdd(&hi32[cell], hi);
-          }
-        } else {
-          const bool narrow = __all_sync(~0u, (x + (1ULL << 25)) < (1ULL << 26));
-          const unsigned long long r = peer_sum(x, peers[i], narrow);
-          if ((lead >> i) & 1u) add(&my[g[i] * width + s], r);
-          __syncwarp();
+        if ((ok >> i) & 1u) {
+          const int cell = (g[i] * p.ns + s) << p.shift;
+          const unsigned lo = (unsigned)v[s][i];
+          const unsigned old = atomicAdd(&lo32[cell], lo);
+          const unsigned hi = (unsigned)(v[s][i] >> 32) + ((unsigned)(old + lo) < lo ? 1u : 0u);
+          if (hi) atomicAdd(&hi32[cell], hi);
         }
       }
     }
   }
   __syncthreads();
 
-  if (kLanes) {  // fold each slot's 32 lane cells into res
-    for (int i = threadIdx.x; i < copy; i += blockDim.x) {
-      const int gg = i / width, col = i - gg * width;
-      unsigned long long x = 0ULL;
-      for (int l = 0; l < 32; ++l) {
-        const int r = (l + i) & 31;  // neighbouring threads, other banks
-        if (col < p.ns) {
-          const int cell = (gg * p.ns + col) * 32 + r;
-          x += ((unsigned long long)cells[sum_cells + cell] << 32) | cells[cell];
-        } else {
-          x += cells[2 * sum_cells + (gg * p.nc + col - p.ns) * 32 + r];
-        }
-      }
-      res[i] = x;
-    }
-    __syncthreads();
-  } else if (p.per_warp) {  // fold the warps' copies into the first
-    for (int i = threadIdx.x; i < copy; i += blockDim.x) {
-      unsigned long long x = acc[i];
-      for (int w = 1; w < warps; ++w) x += acc[w * copy + i];
-      acc[i] = x;
-    }
-    __syncthreads();
-  }
+  // each output folds its copies, starting at a copy of its own so that
+  // neighbouring threads read other banks
   for (int o = threadIdx.x; o < p.domain * p.k; o += blockDim.x) {
     const int gg = o / p.k, j = o - gg * p.k;
     const int s = p.item_sum[j];
     if (s >= 0) {
-      const unsigned long long x = res[gg * width + s];
+      const unsigned* lo = cells + ((gg * p.ns + s) << p.shift);
+      unsigned long long x = 0ULL;
+      for (int l = 0; l < copies; ++l) {
+        const int r = (l + o) & (copies - 1);
+        x += ((unsigned long long)lo[sum_cells + r] << 32) | lo[r];
+      }
       if (x) atomicAdd(&p.sums[o], x);
     }
-    const unsigned long long x = res[gg * width + p.ns + p.item_cnt[j]];
+    const unsigned* cn = cells + 2 * sum_cells + ((gg * p.nc + p.item_cnt[j]) << p.shift);
+    unsigned long long x = 0ULL;
+    for (int l = 0; l < copies; ++l) x += cn[(l + o) & (copies - 1)];
     if (x) atomicAdd(&p.counts[o], x);
   }
-}
-
-template <bool kLanes, bool kVec>
-int launch(const Params& p, size_t smem, cudaStream_t stream) {
-  auto kernel = smalldomain_sum_count_kernel<kLanes, kVec>;
-  // the blocks the card holds at once at this shared memory size
-  static int cached_blocks = 0, cached_dev = -1;
-  static size_t cached_smem = 0;
-  int dev = 0;
-  cudaError_t e = cudaGetDevice(&dev);
-  if (e != cudaSuccess) return (int)e;
-  if (dev != cached_dev || smem != cached_smem) {
-    int sms = 0, per_sm = 0;
-    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (e != cudaSuccess) return (int)e;
-    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kThreads, smem);
-    if (e != cudaSuccess) return (int)e;
-    if (sms < 1 || per_sm < 1) return (int)cudaErrorInvalidConfiguration;
-    cached_blocks = sms * per_sm;
-    cached_dev = dev;
-    cached_smem = smem;
-  }
-  const long long warps = kThreads / 32;
-  const long long want = ((p.n + kStep - 1) / kStep + warps - 1) / warps;
-  const int blocks = (int)(want < cached_blocks ? want : cached_blocks);
-  kernel<<<blocks, kThreads, smem, stream>>>(p);
-  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -325,16 +221,15 @@ int launch(const Params& p, size_t smem, cudaStream_t stream) {
 // column whose mask each sum column takes; cnt_masks: nc mask pointers
 // (null: count the live rows); item_sum/item_cnt: k column indices
 // (item_sum -1: a count-only item).  sums/counts: [domain, k] int64,
-// zeroed by the caller.  `options`: the kOpt* bits above, 0 for the whole
-// design.  Returns cudaGetLastError() after the launch (0 on success).
+// zeroed by the caller.  Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue for arguments it does not take.
 extern "C" int smalldomain_sum_count_launch(
     const void* gid, long long n, int domain, int ns, const void* const* sum_vals,
     const signed char* sum_cnt, int nc, const void* const* cnt_masks, int k,
     const signed char* item_sum, const signed char* item_cnt, void* sums, void* counts,
-    int options, void* stream) {
-  // a lane's 32-bit count cells take at most a 32nd of the rows: n < 2^36
+    void* stream) {
   if (k < 1 || k > kMaxCols || ns < 0 || ns > kMaxCols || nc < 1 || nc > kMaxCols ||
-      domain < 1 || domain > kMaxDomain || n < 0 || n >= (1LL << 36) || (options & ~kOptAll))
+      domain < 1 || domain > kMaxDomain || n < 0)
     return (int)cudaErrorInvalidValue;
   Params p = {};
   p.gid = (const int*)gid;
@@ -356,20 +251,36 @@ extern "C" int smalldomain_sum_count_launch(
   p.counts = (unsigned long long*)counts;
   if (n == 0) return 0;
 
-  // shared memory, at most 48 KB: the static limit, no opt-in needed
-  const size_t copy = (size_t)domain * (ns + nc) * sizeof(unsigned long long);
-  const size_t lane_bytes = (size_t)domain * (2 * ns + nc) * 32 * sizeof(unsigned) + copy;
-  const bool lanes = !(options & kOptNoLanes) && lane_bytes <= kLaneBytesMax;
-  p.per_warp = !lanes && copy <= kWarpCopyMaxBytes;
-  const size_t smem = lanes ? lane_bytes : p.per_warp ? copy * (kThreads / 32) : copy;
+  // the most copies whose cells fit: one copy of every cell is at most
+  // 256 slots * 24 words * 4 B = 24 KB, so at least two fit
+  const size_t copy_bytes = (size_t)domain * (2 * ns + nc) * sizeof(unsigned);
+  p.shift = kMaxCopiesLog2;
+  while ((copy_bytes << p.shift) > kCellBytesMax) --p.shift;
+  const size_t smem = copy_bytes << p.shift;
+
+  int dev = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (e != cudaSuccess) return (int)e;
+  if (sms < 1) return (int)cudaErrorInvalidConfiguration;
+  const long long warps = kThreads / 32;
+  const long long steps = (n + kStep - 1) / kStep;
+  const long long want = (steps + warps - 1) / warps;
+  const long long most = (long long)sms * kBlocksPerSM;
+  const long long blocks = want < most ? want : most;
+  // a count cell takes at most the rows of its block: 32 bits must hold them
+  if ((steps + blocks * warps - 1) / (blocks * warps) * kStep * warps >= (1LL << 32))
+    return (int)cudaErrorInvalidValue;
 
   // 16-byte loads need 16-byte aligned group ids and values, 4-byte masks
-  bool aligned = ((uintptr_t)gid & 15) == 0;
-  for (int s = 0; s < ns; ++s) aligned = aligned && ((uintptr_t)p.sum_vals[s] & 15) == 0;
-  for (int c = 0; c < nc; ++c) aligned = aligned && ((uintptr_t)p.cnt_masks[c] & 3) == 0;
-  const bool vec = aligned && !(options & kOptScalar);
+  bool vec = ((uintptr_t)gid & 15) == 0;
+  for (int s = 0; s < ns; ++s) vec = vec && ((uintptr_t)p.sum_vals[s] & 15) == 0;
+  for (int c = 0; c < nc; ++c) vec = vec && ((uintptr_t)p.cnt_masks[c] & 3) == 0;
 
   cudaStream_t st = (cudaStream_t)stream;
-  if (lanes) return vec ? launch<true, true>(p, smem, st) : launch<true, false>(p, smem, st);
-  return vec ? launch<false, true>(p, smem, st) : launch<false, false>(p, smem, st);
+  if (vec)
+    smalldomain_sum_count_kernel<true><<<(int)blocks, kThreads, smem, st>>>(p);
+  else
+    smalldomain_sum_count_kernel<false><<<(int)blocks, kThreads, smem, st>>>(p);
+  return (int)cudaGetLastError();
 }

@@ -43,19 +43,19 @@ class Plan(NamedTuple):
     item_cnt: list  # per item: its count column
 
 
-def plan_items(cols, masks, dedup: bool = True) -> Plan:
+def plan_items(cols, masks) -> Plan:
     """Each distinct (value, mask) pair is summed once and each distinct
     mask counted once; tensors are the same when their storage is
     (``data_ptr``), and a null mask counts the slot's live rows, as
-    ``count(*)`` does.  ``dedup=False`` gives every item its own columns."""
+    ``count(*)`` does."""
     sum_cols, sum_cnt, count_masks, item_sum, item_cnt = [], [], [], [], []
     sum_at, cnt_at = {}, {}
 
     def ptr(t):
         return None if t is None else t.data_ptr()
 
-    for j, (c, m) in enumerate(zip(cols, masks)):
-        key = ptr(m) if dedup else j
+    for c, m in zip(cols, masks):
+        key = ptr(m)
         if key not in cnt_at:
             cnt_at[key] = len(count_masks)
             count_masks.append(m)
@@ -63,7 +63,7 @@ def plan_items(cols, masks, dedup: bool = True) -> Plan:
         if c is None:
             item_sum.append(-1)
             continue
-        key = (ptr(c), ptr(m)) if dedup else j
+        key = (ptr(c), ptr(m))
         if key not in sum_at:
             sum_at[key] = len(sum_cols)
             sum_cols.append((c, m))
@@ -72,8 +72,7 @@ def plan_items(cols, masks, dedup: bool = True) -> Plan:
     return Plan(sum_cols, sum_cnt, count_masks, item_sum, item_cnt)
 
 
-def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int, *, options: int = 0,
-                          dedup: bool = True):
+def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int):
     """Per (group slot, column): the wrapping int64 sum of the valid values
     and the int64 count of valid rows.
 
@@ -85,10 +84,7 @@ def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int, *, option
 
     On CUDA tensors this launches the kernel (at most 256 slots and 8
     columns, contiguous inputs) or raises; it never falls back to the
-    plain version.  ``options`` (the kernel's ``kOpt*`` bits) and
-    ``dedup=False`` switch parts of the design off, for measuring them;
-    the defaults run all of it.  ``smalldomain_sum_count.launches`` counts
-    launches."""
+    plain version.  ``smalldomain_sum_count.launches`` counts launches."""
     cols, masks = list(cols), list(masks)
     if len(cols) != len(masks):
         raise ValueError("cols and masks must pair up")
@@ -101,7 +97,7 @@ def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int, *, option
     sums, counts = out[0], out[1]
     if n == 0:
         return sums, counts
-    plan = plan_items(cols, masks, dedup)
+    plan = plan_items(cols, masks)
 
     def ptrs(ts):
         return (ctypes.c_void_p * MAX_COLS)(*[None if t is None else t.data_ptr() for t in ts])
@@ -115,7 +111,7 @@ def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int, *, option
         len(plan.sum_cols), ptrs(c for c, _ in plan.sum_cols), idx(plan.sum_cnt),
         len(plan.count_masks), ptrs(plan.count_masks),
         k, idx(plan.item_sum), idx(plan.item_cnt),
-        sums.data_ptr(), counts.data_ptr(), options, stream,
+        sums.data_ptr(), counts.data_ptr(), stream,
     )
     if err != 0:
         raise RuntimeError(f"smalldomain_sum_count launch failed: CUDA error {err}")
@@ -146,7 +142,6 @@ def _launcher():
         ctypes.POINTER(ctypes.c_byte),  # item_cnt[MAX_COLS]
         ctypes.c_void_p,  # sums
         ctypes.c_void_p,  # counts
-        ctypes.c_int,  # options
         ctypes.c_void_p,  # stream
     ]
     fn.restype = ctypes.c_int

@@ -7,8 +7,8 @@ without JAX (tests/conftest.py imports it):
 
 They check kernel K1 against its plain PyTorch version at TPC-H Q1's
 shapes and at edge cases (exact equality), among them every case of
-``chip_smoke.K1_CASES`` and every part of K1's design switched off
-(``chip_smoke.K1_VARIANTS``); Q1 on the card against Q1 on the CPU; and
+``K1_CASES`` (``datafusion_tpu_torch/ops/smalldomain_cases.py``, which
+``chip_smoke.py`` runs too); Q1 on the card against Q1 on the CPU; and
 that Q1 on the card launched K1.
 """
 
@@ -16,9 +16,9 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from datafusion_tpu_torch import ExecutionContext
 from datafusion_tpu_torch.ops import smalldomain as SD
+from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
 from datafusion_tpu_torch.q1data import generate_lineitem_q1
 from datafusion_tpu_torch.queries import get_query_sql
 
@@ -62,30 +62,16 @@ def test_k1_kernel_equals_plain(cuda, n, domain, k, lo, hi):
     assert SD.smalldomain_sum_count.launches == before + (1 if n else 0)
 
 
-def _exact(args, **kw):
-    s, c = SD.smalldomain_sum_count(*args, **kw)
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", list(K1_CASES))
+def test_k1_smoke_cases_equal_plain(cuda, name):
+    args = K1_CASES[name](np.random.default_rng(1))
+    before = SD.smalldomain_sum_count.launches
+    s, c = SD.smalldomain_sum_count(*args)
     torch.cuda.synchronize()
     ps, pc = SD.smalldomain_sum_count_plain(*args)
     assert torch.equal(s, ps) and torch.equal(c, pc)
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("name", list(chip_smoke.K1_CASES))
-def test_k1_smoke_cases_equal_plain(cuda, name):
-    args = chip_smoke.K1_CASES[name](np.random.default_rng(1))
-    before = SD.smalldomain_sum_count.launches
-    _exact(args)
     assert SD.smalldomain_sum_count.launches == before + 1
-
-
-@pytest.mark.gpu
-@pytest.mark.parametrize("variant", list(chip_smoke.K1_VARIANTS))
-@pytest.mark.parametrize("name", ["q1-sf1-shape", "32-groups-a-warp-row", "per-warp-copy-over-limit",
-                                  "duplicate-pointers", "misaligned", "wrapping-both-signs",
-                                  "lane-cells-at-limit"])
-def test_k1_variants_equal_plain(cuda, name, variant):
-    options, dedup = chip_smoke.K1_VARIANTS[variant]
-    _exact(chip_smoke.K1_CASES[name](np.random.default_rng(2)), options=options, dedup=dedup)
 
 
 @pytest.mark.gpu

@@ -37,13 +37,13 @@ def _port(gid, cols, masks, domain):
     return s.numpy(), c.numpy()
 
 
-def _through_plan(gid, cols, masks, domain, dedup=True):
+def _through_plan(gid, cols, masks, domain):
     """What the CUDA kernel computes: the plain version over the plan's
     distinct sum and count columns, written back through the item map."""
     tg = torch.from_numpy(gid)
     tc = [None if x is None else torch.from_numpy(x) for x in cols]
     tm = [None if m is None else torch.from_numpy(m) for m in masks]
-    plan = SD.plan_items(tc, tm, dedup)
+    plan = SD.plan_items(tc, tm)
     s, _ = SD.smalldomain_sum_count_plain(
         tg, [c for c, _ in plan.sum_cols], [m for _, m in plan.sum_cols], domain
     )
@@ -123,10 +123,9 @@ def test_plain_equals_numpy_oracle(n, domain, lo, hi):
     os_, oc = _oracle(gid, cols, masks, domain)
     np.testing.assert_array_equal(ps, os_)
     np.testing.assert_array_equal(pc, oc)
-    for dedup in (True, False):
-        _, qs, qc = _through_plan(gid, cols, masks, domain, dedup)
-        np.testing.assert_array_equal(qs, os_)
-        np.testing.assert_array_equal(qc, oc)
+    _, qs, qc = _through_plan(gid, cols, masks, domain)
+    np.testing.assert_array_equal(qs, os_)
+    np.testing.assert_array_equal(qc, oc)
     if abs(lo) > 1 << 61:  # the wrapping cases really wrapped
         exact = sum(int(x) for x in cols[0][(gid == 0) & masks[0]])
         assert int(ps[0, 0]) != exact
@@ -176,11 +175,6 @@ def test_plan_dedups_and_maps_items_back(case):
     np.testing.assert_array_equal(qc, pc)
     np.testing.assert_array_equal(qs, os_)
     np.testing.assert_array_equal(qc, oc)
-    undone, us, uc = _through_plan(gid, cols, masks, domain, dedup=False)
-    assert len(undone.count_masks) == len(cols)
-    assert len(undone.sum_cols) == sum(c is not None for c in cols)
-    np.testing.assert_array_equal(us, ps)
-    np.testing.assert_array_equal(uc, pc)
 
 
 def test_q1_items_through_plan_equal_pallas_interpret():
