@@ -21,12 +21,24 @@ Phases (each raises, and the script exits non-zero, on failure):
                over many launches) and around its wrapper (CUDA events),
                beside its byte bound, its plain version and the one-call
                PyTorch yardstick; K1 alone at a few other shapes
+  6. sql     - the lineitem-only queries of datafusion_tpu_torch/queries
+               (NAMED_QUERIES) at SF1 on the ten-column lineitem, each
+               checked against a numpy oracle (keys, counts and decimal
+               sums exact, floats rel 1e-12) and its path asserted from
+               K1's launch count (only `linenumber` takes the small-domain
+               path); per query, printed: warm medians of 5 runs, five
+               times over, kernel time and device idle share of one
+               profiled run, host syncs per run and peak device memory;
+               the top device ops of q18_bigorders
+  7. f4      - the card's float64 sqrt against numpy's over 10^6 values,
+               and a grouped stddev against the numpy oracle
 The last two lines are the kernels JSON line and the ok JSON line.
 """
 
 from __future__ import annotations
 
 import collections
+import datetime
 import json
 import os
 import re
@@ -41,22 +53,27 @@ import torch
 
 from datafusion_tpu_torch import ExecutionContext
 from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
+from datafusion_tpu_torch.columnar.table import HOST_SYNCS
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
 from datafusion_tpu_torch.physical import stage_compiler
 from datafusion_tpu_torch.q1data import (
     LINESTATUSES,
     RETURNFLAGS,
+    generate_lineitem,
     generate_lineitem_q1,
+    lineitem_arrays,
     lineitem_q1_arrays,
 )
-from datafusion_tpu_torch.queries import get_query_sql
+from datafusion_tpu_torch.queries import NAMED_QUERIES, get_named_query, get_query_sql
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SF = 1.0
 SEED = 7
 Q1_BATCHES = 5  # Q1 warm timing: this many medians of 5 runs, after two warm-ups
+SQL_BATCHES = 5  # the same for each query of the sql phase
 Q1_SHIPDATE_MAX = int(np.datetime64("1998-09-02", "D").astype(np.int64))
+EPOCH = datetime.date(1970, 1, 1)
 
 
 def log(msg: str) -> None:
@@ -306,8 +323,9 @@ def kernel_only_ms(fn, kernel: str, iters: int = 200, tries: int = 3):
                          f"in {tries} windows")
 
 
-def profile_q1(ctx, sql: str, name_power: str) -> None:
-    """Where one warm Q1 run spends device time, by operator."""
+def profile_query(ctx, sql: str, label: str, name_power: str, top: int = 12) -> dict:
+    """Where one warm run of ``sql`` spends device time, by operator (the
+    ``top`` operators printed); returns its wall and kernel time."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -320,16 +338,38 @@ def profile_q1(ctx, sql: str, name_power: str) -> None:
     # events repeat their kernels' device time
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    log(f"[profile] {name_power}: one warm Q1 (profiled) {wall:.3f} ms wall, "
+    launches = sum(e.count for e in kernels)
+    log(f"[profile] {name_power}: one warm {label} (profiled) {wall:.3f} ms wall, "
         f"{busy:.3f} ms kernel time, device idle share {1 - busy / wall:.1%}")
     ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
-    for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:12]:
+    for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
         if e.self_device_time_total <= 0:
             break
         log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms device  "
             f"{e.count:4d} calls  {e.key[:60]}")
-    log(f"[profile]   {len(kernels)} distinct kernels, "
-        f"{sum(e.count for e in kernels)} launches")
+    log(f"[profile]   {len(kernels)} distinct kernels, {launches} launches")
+    return {"profiled_wall_ms": wall, "kernel_ms": busy, "idle_share": 1 - busy / wall,
+            "launches": launches}
+
+
+def warm_runs(ctx, sql: str, batches: int) -> list:
+    """Milliseconds of ``batches`` * 5 warm runs, after two warm-ups, each
+    ending in a synchronize."""
+    runs = []
+    for i in range(2 + 5 * batches):
+        t0 = time.perf_counter()
+        ctx.sql(sql).collect().to_pydict()
+        torch.cuda.synchronize()
+        if i >= 2:
+            runs.append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
+def spread(runs: list) -> str:
+    medians = [statistics.median(runs[i : i + 5]) for i in range(0, len(runs), 5)]
+    return (f"warm median {statistics.median(runs):.3f} ms over {len(runs)} runs "
+            f"(min {min(runs):.3f}, max {max(runs):.3f}); medians of 5 runs "
+            f"{['%.3f' % m for m in medians]}")
 
 
 def time_k1_cases(name_power: str, kname: str) -> None:
@@ -347,6 +387,187 @@ def time_k1_cases(name_power: str, kname: str) -> None:
             f"launches), byte bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of bound), "
             f"index_add_ {library_ms:.4f} ms")
         del args
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the lineitem-only queries
+# ---------------------------------------------------------------------------
+
+
+def _days(iso: str) -> int:
+    return int(np.datetime64(iso, "D").astype(np.int64))
+
+
+def _grouped_int_sums(keys, vals):
+    """(sorted distinct keys, exact int64 sum of vals per key)."""
+    uniq, inv = np.unique(keys, return_inverse=True)
+    sums = np.zeros(len(uniq), np.int64)
+    np.add.at(sums, inv, vals)
+    return uniq, sums
+
+
+def sql_oracles(a: dict) -> dict:
+    """Each named query over the generator's storage arrays, in numpy:
+    decimals as exact scaled int64 sums, returned as to_pydict gives them
+    (the int over 10**scale); dates as datetime.date; avgs as float64."""
+    qty, price, disc = a["l_quantity"], a["l_extendedprice"], a["l_discount"]
+    ship, ln, supp = a["l_shipdate"], a["l_linenumber"], a["l_suppkey"]
+    out = {}
+
+    m = ((ship >= _days("1994-01-01")) & (ship < _days("1995-01-01"))
+         & (disc / 100 >= 0.06 - 0.01) & (disc / 100 <= 0.06 + 0.01) & (qty < 2400))
+    out["q6"] = {"revenue": [int((price[m] * disc[m]).sum()) / 10**4]}
+
+    m = (ship >= _days("1996-01-01")) & (ship < _days("1996-04-01"))
+    keys, sums = _grouped_int_sums(supp[m], price[m] * (100 - disc[m]))
+    out["q15_revenue"] = {"supplier_no": keys.tolist(),
+                          "total_revenue": [int(v) / 10**4 for v in sums]}
+
+    okey = a["l_orderkey"]  # rows come in order-key order
+    starts = np.flatnonzero(np.r_[True, okey[1:] != okey[:-1]])
+    sums = np.add.reduceat(qty, starts)
+    big = sums > 300 * 100
+    out["q18_bigorders"] = {"l_orderkey": okey[starts][big].tolist(),
+                            "sum_qty": [int(v) / 100 for v in sums[big]]}
+
+    lines = np.unique(ln).tolist()
+    cols = {"l_linenumber": lines, "count_lines": [], "sum_qty": [], "avg_price": [],
+            "first_ship": [], "max_disc": []}
+    for v in lines:
+        sel = ln == v
+        n = int(sel.sum())
+        cols["count_lines"].append(n)
+        cols["sum_qty"].append(int(qty[sel].sum()) / 100)
+        cols["avg_price"].append(int(price[sel].sum()) / 100 / n)
+        cols["first_ship"].append(EPOCH + datetime.timedelta(days=int(ship[sel].min())))
+        cols["max_disc"].append(int(disc[sel].max()) / 100)
+    out["linenumber"] = cols
+
+    pairs = np.unique(ln.astype(np.int64) << 32 | supp)
+    keys, counts = np.unique(pairs >> 32, return_counts=True)
+    out["distinct_supp"] = {"l_linenumber": keys.tolist(), "suppliers": counts.tolist()}
+
+    m = np.isin(ln, (1, 2, 3))
+    year = ship[m].astype("datetime64[D]").astype("datetime64[Y]").astype(np.int64) + 1970
+    returned = np.where(a["l_returnflag"][m] == RETURNFLAGS.index("R"),
+                        price[m] * (100 - disc[m]), 0)
+    keys, sums = _grouped_int_sums(year, returned)
+    _, counts = np.unique(year, return_counts=True)
+    out["exprs"] = {"l_year": keys.tolist(), "returned_revenue": [int(v) / 10**4 for v in sums],
+                    "lines": counts.tolist()}
+    return out
+
+
+# the float columns of the named queries (rel 1e-12); every other column
+# is compared exactly
+SQL_FLOAT_COLS = {"avg_price"}
+# queries without ORDER BY: rows are compared in the order of this key
+SQL_UNORDERED_KEY = {"q15_revenue": "supplier_no", "q18_bigorders": "l_orderkey",
+                     "distinct_supp": "l_linenumber"}
+
+
+def check_rows(name: str, got: dict, want: dict, float_cols=()) -> None:
+    if list(got) != list(want):
+        raise AssertionError(f"{name}: columns {list(got)} != {list(want)}")
+    key = SQL_UNORDERED_KEY.get(name)
+    if key is not None:
+        order = sorted(range(len(got[key])), key=lambda i: got[key][i])
+        got = {k: [v[i] for i in order] for k, v in got.items()}
+    for k, w in want.items():
+        g = got[k]
+        if len(g) != len(w):
+            raise AssertionError(f"{name} {k}: {len(g)} rows, want {len(w)}")
+        if k in float_cols:
+            bad = [(x, y) for x, y in zip(g, w) if not abs(x - y) <= 1e-12 * abs(y)]
+        else:
+            bad = [(x, y) for x, y in zip(g, w) if x != y]
+        if bad:
+            raise AssertionError(f"{name} {k}: {len(bad)} rows differ from the oracle, e.g. {bad[:3]}")
+
+
+# queries whose GROUP BY takes the small-domain path, and so launch K1
+SQL_K1_QUERIES = {"linenumber"}
+
+
+def phase_sql(name_power: str) -> dict:
+    """The named queries on the card at SF1: oracle, path, timing, profile,
+    host syncs and peak memory; returns K1's launches per query."""
+    t0 = time.perf_counter()
+    arrays = lineitem_arrays(SF, SEED)
+    want = sql_oracles(arrays)
+    table = generate_lineitem(SF, SEED)  # on the card
+    ctx = ExecutionContext()
+    ctx.register_table("lineitem", table)
+    torch.cuda.synchronize()
+    table_mb = sum(c.data.nbytes + c.valid.nbytes for c in table.columns) / 2**20
+    log(f"[sql] lineitem SF{SF}: {table.nrows} rows x {len(table.columns)} columns, capacity "
+        f"{table.capacity}, {table_mb:.1f} MiB on the card; oracles and set-up "
+        f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+        f"allocated in all")
+    launches = {}
+    for name in NAMED_QUERIES:
+        sql = get_named_query(name)
+        SD.smalldomain_sum_count.launches = 0
+        t0 = time.perf_counter()
+        got = ctx.sql(sql).collect().to_pydict()
+        cold = (time.perf_counter() - t0) * 1e3
+        launches[name] = SD.smalldomain_sum_count.launches
+        check_rows(name, got, want[name], SQL_FLOAT_COLS)
+        if (launches[name] > 0) != (name in SQL_K1_QUERIES):
+            raise AssertionError(f"{name}: K1 launched {launches[name]} times; the "
+                                 f"{'small-domain' if name in SQL_K1_QUERIES else 'sort'} "
+                                 f"path should launch it {'at least once' if name in SQL_K1_QUERIES else 'never'}")
+        runs = warm_runs(ctx, sql, SQL_BATCHES)
+        syncs0 = HOST_SYNCS[0]
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        ctx.sql(sql).collect().to_pydict()
+        torch.cuda.synchronize()
+        syncs = HOST_SYNCS[0] - syncs0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        prof = profile_query(ctx, sql, name, name_power, top=12 if name == "q18_bigorders" else 0)
+        log(f"[sql] {name_power}: {name} SF{SF} matches the numpy oracle ({len(got[next(iter(got))])} "
+            f"rows); K1 launches {launches[name]}; cold run {cold:.3f} ms; {spread(runs)}; "
+            f"runs {['%.3f' % r for r in runs]}; profiled run: kernel time {prof['kernel_ms']:.3f} ms "
+            f"in {prof['launches']} launches, device idle share {prof['idle_share']:.1%}; host syncs "
+            f"per run {syncs}; peak memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the "
+            f"{base_mb:.1f} MiB allocated before the run, the table's {table_mb:.1f} MiB among them)")
+    del ctx, table
+    torch.cuda.empty_cache()
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# phase 7: fault F4 (float64 sqrt) on the card
+# ---------------------------------------------------------------------------
+
+
+def phase_f4(name_power: str) -> None:
+    rng = np.random.default_rng(SEED)
+    x = np.concatenate([[8.0, 2.0, 3.0, 0.5], rng.random(400_000) * 1e4,
+                        rng.random(300_000), np.exp(rng.normal(0, 20, 299_996))])
+    want = np.sqrt(x)
+    got = torch.sqrt(torch.from_numpy(x).cuda()).cpu().numpy()
+    differ = int((got != want).sum())
+    ulps = float(np.max(np.abs(got - want) / np.spacing(want)))
+    log(f"[f4] {name_power}: torch.sqrt on the card (float64) differs from numpy's correctly "
+        f"rounded sqrt in {differ} of {len(x)} values (max {ulps:.0f} ulp); "
+        f"sqrt(8.0) = {got[0]!r} (numpy {want[0]!r})")
+    a = lineitem_arrays(SF, SEED)
+    ctx = ExecutionContext()
+    ctx.register_table("lineitem", generate_lineitem(SF, SEED))
+    sql = ("SELECT l_linenumber, stddev(l_quantity) AS sd FROM lineitem "
+           "GROUP BY l_linenumber ORDER BY l_linenumber")
+    got = ctx.sql(sql).collect().to_pydict()
+    lines = np.unique(a["l_linenumber"])
+    want = [float(np.std(a["l_quantity"][a["l_linenumber"] == v] / 100, ddof=1)) for v in lines]
+    if got["l_linenumber"] != lines.tolist():
+        raise AssertionError(f"f4 stddev: keys {got['l_linenumber']} != {lines.tolist()}")
+    rel = max(abs(g - w) / w for g, w in zip(got["sd"], want))
+    if not rel <= 1e-12:
+        raise AssertionError(f"f4 stddev: max rel err {rel:.3e} > 1e-12: {got['sd']} vs {want}")
+    log(f"[f4] {name_power}: grouped stddev(l_quantity) at SF{SF} matches the numpy oracle, "
+        f"max rel err {rel:.3e}")
 
 
 def main() -> int:
@@ -370,19 +591,10 @@ def main() -> int:
     ctx, launches, args = phase_main(sql)
     err = max(err, k1_check("q1-main-path-inputs", *args))
 
-    runs = []
-    for i in range(2 + 5 * Q1_BATCHES):
-        t0 = time.perf_counter()
-        ctx.sql(sql).collect().to_pydict()
-        torch.cuda.synchronize()
-        if i >= 2:  # two warm-ups
-            runs.append((time.perf_counter() - t0) * 1e3)
-    medians = [statistics.median(runs[i : i + 5]) for i in range(0, len(runs), 5)]
-    log(f"[timing] {name_power}: Q1 SF{SF} warm median {statistics.median(runs):.3f} ms over "
-        f"{len(runs)} runs (min {min(runs):.3f}, max {max(runs):.3f}); medians of 5 runs "
-        f"{['%.3f' % m for m in medians]}; runs {['%.3f' % r for r in runs]}")
+    runs = warm_runs(ctx, sql, Q1_BATCHES)
+    log(f"[timing] {name_power}: Q1 SF{SF} {spread(runs)}; runs {['%.3f' % r for r in runs]}")
 
-    profile_q1(ctx, sql, name_power)
+    profile_query(ctx, sql, "Q1", name_power)
 
     kname = "smalldomain_sum_count_kernel"
     bound_ms = k1_bound_ms(*args)
@@ -396,13 +608,20 @@ def main() -> int:
         f"(CUDA events, 200 calls); byte bound {bound_ms:.4f} ms ({bound_ms / ms:.1%} of bound); "
         f"plain {plain_ms:.4f} ms; index_add_ {library_ms:.4f} ms")
     time_k1_cases(name_power, kname)
+    del ctx, args  # the Q1 table and K1's inputs: the sql phase measures memory
+    torch.cuda.empty_cache()
+
+    sql_launches = phase_sql(name_power)
+    phase_f4(name_power)
+    by_path = {"q1": launches, **sql_launches}
 
     kernels = [{
         "name": "smalldomain_sum_count",
         "route": "cuda",
         "source": "datafusion_tpu_torch/csrc/smalldomain_sum_count.cu",
         "replaces": "datafusion_tpu/ops/pallas_kernels.py:167",
-        "launches": launches,
+        "launches": sum(by_path.values()),
+        "launches_by_path": by_path,
         "max_abs_err": err,
         "ms": ms,
         "ms_launches_kept": kept,

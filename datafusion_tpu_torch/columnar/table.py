@@ -23,9 +23,23 @@ from ..types.dtypes import DataType
 from .column import Column, zeros_column
 from .dictionary import StringDict
 
-# count of lazy device row counts forced to a host int (each one waits for
-# the device)
+# count of device values read on the host: lazy row counts forced to an
+# int and the reads of ``host_values`` (each one waits for the device)
 HOST_SYNCS = [0]
+
+
+def host_values(t: torch.Tensor) -> list:
+    """A small device tensor's values as host Python values (waits for the
+    device; counted in HOST_SYNCS)."""
+    HOST_SYNCS[0] += 1
+    return t.tolist()
+
+
+def host_numpy(t: torch.Tensor) -> np.ndarray:
+    """A device tensor copied to a host numpy array (waits for the device;
+    counted in HOST_SYNCS)."""
+    HOST_SYNCS[0] += 1
+    return t.cpu().numpy()
 
 
 def round_capacity(n: int) -> int:
@@ -49,9 +63,8 @@ class Table:
         # nrows may be a 0-dim device tensor: it stays on the device until
         # some host decision actually needs the count
         self._nrows = int(nrows) if isinstance(nrows, (int, np.integer)) else nrows
-        self._device = (
-            columns[0].device if columns else torch.device(device or "cpu")
-        )
+        # ``device=None`` means the card here too (device.py)
+        self._device = columns[0].device if columns else resolve_device(device)
 
     @property
     def nrows(self) -> int:

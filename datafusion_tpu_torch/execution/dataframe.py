@@ -3,8 +3,8 @@
 Port of ``datafusion_tpu/execution/dataframe.py`` (reference:
 datafusion/src/dataframe.rs + execution/dataframe_impl.rs:143):
 select/filter/aggregate/join/sort/limit/union/distinct/explain, terminal
-collect()/show().  Builders whose operators are not ported yet plan fine
-and raise at collect().
+collect()/show().  Builders whose operators later slices port (joins,
+windows) plan fine and raise at collect(), naming the slice.
 """
 
 from __future__ import annotations

@@ -2,18 +2,18 @@
 columns.
 
 Port of ``datafusion_tpu/exprs/physical.py`` to eager torch: each node
-evaluates as whole-column tensor ops on the table's device.  This slice
-carries what TPC-H Q1 reaches: columns, literals, casts between integer,
-decimal, date and float types, comparisons (dictionary strings included),
-decimal ``+ - * / %``, Kleene AND/OR, NOT, IS [NOT] NULL and CAST.  CASE,
-IN lists and scalar functions are ported in slice 2; the physical planner
-refuses them.
+evaluates as whole-column tensor ops on the table's device (reference
+equivalents in datafusion/src/physical_plan/expressions/: Column, Literal,
+BinaryExpr, CaseExpr, CastExpr/TryCastExpr, InListExpr,
+IsNull/IsNotNull/Not/Negative, LIKE).  User-defined scalar functions
+(``PhysScalarUDF``) are ported in slice 5.
 
 String semantics ride on sorted dictionaries (columnar/dictionary.py):
 - col <op> col -> harmonize dictionaries (host merge), then an integer
   compare of remapped codes;
-- LIKE -> a per-distinct-value host predicate shipped as a code-indexed
-  lookup table, applied with one device gather.
+- LIKE / string functions -> a per-distinct-value host computation shipped
+  as a code-indexed lookup table, applied with one device gather;
+- a cast to a string formats each distinct value on the host.
 
 Null semantics follow SQL three-valued logic (Kleene AND/OR).
 """
@@ -29,9 +29,10 @@ import torch
 
 from ..columnar.column import Column as CVec
 from ..columnar.dictionary import StringDict
-from ..columnar.table import Table
+from ..columnar.table import Table, host_numpy
 from ..device import torch_dtype
 from ..errors import ExecutionError, PlanError
+from ..ops import kernels as K
 from ..types import ScalarValue
 from ..types.dtypes import (
     DECIMAL_MAX_PRECISION,
@@ -42,6 +43,7 @@ from ..types.dtypes import (
     INTERVAL_DT,
     INTERVAL_YM,
     NULLTYPE,
+    STRING,
     TIMESTAMP_US,
     DataType,
     decimal,
@@ -55,6 +57,14 @@ from ..types.dtypes import (
 
 def _tdt(dtype: DataType) -> torch.dtype:
     return torch_dtype(dtype.storage_np_dtype())
+
+
+def descale(x: torch.Tensor, scale: int) -> torch.Tensor:
+    """float64 x / 10**scale as the reference's compiled programs compute
+    it: XLA rewrites a division by a constant into a multiplication by its
+    float64 reciprocal, and the port does the same so both engines give
+    the same bits."""
+    return x * (1.0 / 10**scale) if scale else x
 
 
 class PhysicalExpr:
@@ -169,7 +179,7 @@ def cast_column(col: CVec, to: DataType, capacity: int | None = None, safe: bool
         return _cast_from_string(col, d, to, safe)
 
     if to.is_string:
-        raise NotImplementedError("casts to strings are ported in slice 2")
+        return _cast_to_string(col)
 
     # ---- numeric/temporal device casts -------------------------------------
     if frm.is_decimal and to.is_decimal:
@@ -180,7 +190,7 @@ def cast_column(col: CVec, to: DataType, capacity: int | None = None, safe: bool
             new = _div_round_half_away(data, 10 ** (-ds))
         return CVec(to, new.to(_tdt(to)), valid)
     if frm.is_decimal:
-        f = data.to(torch.float64) / (10**frm.scale)
+        f = descale(data.to(torch.float64), frm.scale)
         if to.is_float:
             return CVec(to, f.to(_tdt(to)), valid)
         if to.is_integer:
@@ -239,6 +249,28 @@ def _cast_from_string(col: CVec, d: StringDict, to: DataType, safe: bool) -> CVe
     new_data = torch.from_numpy(lut).to(dev)[codes]
     new_valid = col.valid & torch.from_numpy(ok).to(dev)[codes]
     return CVec(to, new_data, new_valid)
+
+
+def _cast_to_string(col: CVec) -> CVec:
+    """Format each distinct valid value on the host, as the reference
+    formats each row; the codes go back to the device in one copy."""
+    frm = col.dtype
+    host, hv = host_numpy(col.data), host_numpy(col.valid)
+    vals = host[hv]
+    # distinct bit patterns, so that -0.0 and 0.0 format apart
+    bits = vals.view(f"i{vals.itemsize}") if vals.dtype.kind == "f" else vals
+    _, first, inv = np.unique(bits, return_index=True, return_inverse=True)
+    uniq = vals[first]
+    if frm.is_decimal:
+        strs = [f"{v / 10**frm.scale:.{frm.scale}f}" for v in uniq]
+    elif frm == DATE32:
+        strs = [str(np.datetime64(int(v), "D")) for v in uniq]
+    else:
+        strs = [str(v) for v in uniq]
+    d, ucodes = StringDict.from_strings(strs)
+    codes = np.zeros(len(host), dtype=np.int32)
+    codes[hv] = ucodes[inv.reshape(-1)]
+    return CVec(STRING, _lut(codes, col.data.device), col.valid, d)
 
 
 def _div_round_half_away(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -351,7 +383,7 @@ class PhysBinary(PhysicalExpr):
             return _decimal_arith(l, r, op, valid)
         lc = cast_column(l, common)
         rc = cast_column(r, common)
-        a, b = lc.data, rc.data
+        a, b = _unsigned_operands(lc.data, rc.data)
         if op == "+":
             out = a + b
         elif op == "-":
@@ -387,7 +419,26 @@ def _trunc_div(a, b):
     return torch.div(a, sb, rounding_mode="trunc").to(a.dtype)
 
 
+def _unsigned_operands(a, b):
+    """Operands torch can compute with (it has no CUDA arithmetic for
+    uint16/32/64): uint16 and uint32 widen to int64, exactly; uint64 takes
+    its signed view, whose + - * wrap to the same bits (its / and % then
+    read values from 2^63 up as negative: a port fault)."""
+    if a.dtype in (torch.uint16, torch.uint32):
+        return a.to(torch.int64), b.to(torch.int64)
+    return K.signed_view(a), K.signed_view(b)
+
+
+def _unsigned_order(x):
+    """A signed tensor in x's unsigned order (uint64: the top bit flipped)."""
+    if x.dtype == torch.uint64:
+        return torch.bitwise_xor(x.view(torch.int64), -(2**63))
+    return x.to(torch.int64)
+
+
 def _compare(a, b, valid, op) -> CVec:
+    if a.dtype in (torch.uint16, torch.uint32, torch.uint64):
+        a, b = _unsigned_order(a), _unsigned_order(b)
     if op == "=":
         out = a == b
     elif op == "!=":
@@ -432,9 +483,16 @@ def _temporal_arith(l: CVec, r: CVec, op: str) -> Optional[CVec]:
                     days = torch.div(ms, 86_400_000, rounding_mode="floor")
                     return CVec(DATE32, (a.data + days).to(torch.int32), valid)
                 return CVec(TIMESTAMP_US, a.data + ms * 1000, valid)
-            raise NotImplementedError(
-                "calendar (month) interval arithmetic is ported in slice 2"
-            )
+            # interval months: calendar-aware add
+            from ..functions.datetime_fns import add_months_days
+
+            months = b.data.to(torch.int32) * sign
+            if a.dtype == DATE32:
+                return CVec(DATE32, add_months_days(a.data, months), valid)
+            days = torch.div(a.data, 86_400_000_000, rounding_mode="floor").to(torch.int32)
+            rem = a.data - days.to(torch.int64) * 86_400_000_000
+            nd = add_months_days(days, months)
+            return CVec(TIMESTAMP_US, nd.to(torch.int64) * 86_400_000_000 + rem, valid)
     if lt == DATE32 and rt == DATE32 and op == "-":
         return CVec(INT64, l.data.to(torch.int64) - r.data.to(torch.int64), valid)
     if lt == TIMESTAMP_US and rt == TIMESTAMP_US and op == "-":
@@ -537,8 +595,8 @@ def _decimal_arith(l: CVec, r: CVec, op: str, valid) -> CVec:
         return CVec(decimal(DECIMAL_MAX_PRECISION, ls + rs), a * b, valid)
     if op == "/":
         # decimal division computed in float64 (reference promotes too)
-        fa = a.to(torch.float64) / (10**ls)
-        fb = b.to(torch.float64) / (10**rs)
+        fa = descale(a.to(torch.float64), ls)
+        fb = descale(b.to(torch.float64), rs)
         ok = b != 0
         out = torch.where(ok, fa / torch.where(ok, fb, torch.ones_like(fb)), torch.zeros_like(fa))
         return CVec(FLOAT64, out, valid & ok)
@@ -641,3 +699,141 @@ class PhysCast(PhysicalExpr):
 
     def evaluate(self, table):
         return cast_column(self.expr.evaluate(table), self.dtype, safe=self.safe)
+
+    def needs_host(self) -> bool:
+        # a cast to a string formats the column's values on the host, and
+        # its dictionary depends on them: it cannot join a fused stage,
+        # whose output dictionaries are fixed when the stage is built
+        frm = self.expr.dtype
+        to_string = self.dtype.is_string and not frm.is_string and frm != NULLTYPE
+        return to_string or super().needs_host()
+
+
+@dataclass
+class PhysCase(PhysicalExpr):
+    base: Optional[PhysicalExpr]
+    when_then: list[tuple[PhysicalExpr, PhysicalExpr]]
+    else_expr: Optional[PhysicalExpr]
+    dtype: DataType
+
+    def children(self):
+        out = [self.base] if self.base else []
+        for w, t in self.when_then:
+            out += [w, t]
+        if self.else_expr:
+            out.append(self.else_expr)
+        return out
+
+    def evaluate(self, table: Table) -> CVec:
+        cap = table.capacity
+        dev = table.device
+        base = self.base.evaluate(table) if self.base is not None else None
+        out = torch.zeros(cap, dtype=_tdt(self.dtype), device=dev)
+        valid = torch.zeros(cap, dtype=torch.bool, device=dev)
+        decided = torch.zeros(cap, dtype=torch.bool, device=dev)
+        out_dict: StringDict | None = None
+        for w, t in self.when_then:
+            wc = w.evaluate(table)
+            if base is not None:
+                bb, ww = (base, wc)
+                if base.dtype.is_string:
+                    bb, ww = harmonize_strings(base, wc)
+                cond = (bb.data == ww.data) & bb.valid & ww.valid
+            else:
+                cond = wc.data.to(torch.bool) & wc.valid
+            tv = cast_column(t.evaluate(table), self.dtype)
+            if self.dtype.is_string:
+                if out_dict is None:
+                    out_dict = tv.dictionary
+                else:
+                    prev, tv = harmonize_strings(CVec(STRING, out, valid, out_dict), tv)
+                    out_dict = prev.dictionary
+                    out = prev.data
+            take = cond & ~decided
+            out = K.where_bits(take, tv.data.to(out.dtype), out)
+            valid = torch.where(take, tv.valid, valid)
+            decided = decided | take
+        if self.else_expr is not None:
+            ev = cast_column(self.else_expr.evaluate(table), self.dtype)
+            if self.dtype.is_string and out_dict is not None:
+                prev, ev = harmonize_strings(CVec(STRING, out, valid, out_dict), ev)
+                out_dict = prev.dictionary
+                out = prev.data
+            out = K.where_bits(~decided, ev.data.to(out.dtype), out)
+            valid = torch.where(~decided, ev.valid, valid)
+        else:
+            valid = valid & decided
+        return CVec(self.dtype, out, valid, out_dict)
+
+
+@dataclass
+class PhysInList(PhysicalExpr):
+    expr: PhysicalExpr
+    values: list[ScalarValue]
+    negated: bool = False
+    dtype: DataType = BOOL
+
+    def children(self):
+        return [self.expr]
+
+    def evaluate(self, table: Table) -> CVec:
+        c = self.expr.evaluate(table)
+        if c.dtype.is_string:
+            d = c.dictionary
+            assert d is not None
+            lut = np.zeros(max(len(d), 1), dtype=bool)
+            for v in self.values:
+                if v.value is not None:
+                    code = d.code_of(str(v.value))
+                    if code is not None:
+                        lut[code] = True
+            codes = torch.clamp(c.data, 0, max(len(d) - 1, 0)).to(torch.int64)
+            hit = _lut(lut, c.data.device)[codes]
+        else:
+            hit = torch.zeros_like(c.valid)
+            for v in self.values:
+                if v.value is None:
+                    continue
+                vv = v.value
+                if c.dtype.is_decimal and v.dtype.is_decimal:
+                    vv = vv * 10 ** (c.dtype.scale - v.dtype.scale)
+                elif c.dtype.is_decimal:
+                    vv = int(round(float(vv) * 10**c.dtype.scale))
+                hit = hit | (c.data == vv)
+        out = ~hit if self.negated else hit
+        # SQL: x IN (..) is NULL if x is NULL, or on no match when the list
+        # holds a NULL
+        valid = c.valid
+        if any(v.value is None for v in self.values):
+            valid = valid & hit
+        return CVec(BOOL, out, valid)
+
+
+@dataclass
+class PhysScalarFunction(PhysicalExpr):
+    name: str
+    args: list[PhysicalExpr]
+    dtype: DataType
+
+    def children(self):
+        return list(self.args)
+
+    def evaluate(self, table: Table) -> CVec:
+        from ..functions.registry import dispatch_scalar
+
+        arg_cols = [a.evaluate(table) for a in self.args]
+        return dispatch_scalar(self.name, arg_cols, self.dtype, table.capacity, table.device)
+
+    def needs_host(self) -> bool:
+        from ..functions.registry import _ROW_FNS
+
+        n = self.name.lower()
+        # these materialize column DATA host-side (distinct-combo / unique)
+        if n in ("to_hex", "chr", "concat", "concat_ws"):
+            return True
+        if n in _ROW_FNS and any(not isinstance(a, PhysLit) for a in self.args[1:]):
+            return True
+        return any(a.needs_host() for a in self.args)
+
+    def __repr__(self):
+        return f"{self.name}({', '.join(map(repr, self.args))})"

@@ -1,24 +1,40 @@
-"""Scalar function catalog: return-type inference.
+"""Scalar function catalog: return-type inference + vectorized dispatch.
 
-Port of the type-inference half of ``datafusion_tpu/functions/registry.py``
-(the logical layer needs ``scalar_return_type`` to type expressions).  The
-math functions map to their torch counterparts; evaluating any scalar
-function is ported in a later slice, so ``dispatch_scalar`` raises.
+Port of ``datafusion_tpu/functions/registry.py`` (reference: the
+BuiltinScalarFunction enum + dispatch, datafusion/src/physical_plan/
+functions.rs:103-229, covering math, string, unicode, regex, datetime,
+crypto and misc functions).
+
+Math functions are torch operations on the column's device, with the
+reference's semantics kept as they are: ``log`` is ``log10`` and
+``round`` rounds half to even.  String functions run host-side once per
+*distinct* dictionary value and ship back as a code lookup table, applied
+with one device gather; functions of several column arguments run once
+per distinct combination of values.  Datetime functions are integer
+calendar arithmetic (functions/datetime_fns.py).  ``array`` builds a
+fixed-size list column, which is ported in slice 5.
 """
 
 from __future__ import annotations
 
 import hashlib
 import re as _re
+from typing import Callable
 
+import numpy as np
 import torch
 
+from ..columnar.column import Column as CVec
+from ..columnar.dictionary import StringDict
+from ..columnar.table import host_numpy
 from ..errors import PlanError
+from ..ops import kernels as K
 from ..types.dtypes import (
     BOOL,
     DATE32,
     FLOAT64,
     INT32,
+    INT64,
     STRING,
     TIMESTAMP_US,
     DataType,
@@ -216,5 +232,439 @@ def scalar_return_type(name: str, arg_types: list[DataType]) -> DataType:
 # ---------------------------------------------------------------------------
 
 
-def dispatch_scalar(name: str, args, out_dtype: DataType, capacity: int):
-    raise NotImplementedError("scalar functions are ported in a later slice")
+def _gather_lut(lut: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
+    """lut[codes] on the codes' device (codes clamped into the table)."""
+    idx = torch.clamp(codes, 0, len(lut) - 1).to(torch.int64)
+    return torch.from_numpy(np.ascontiguousarray(lut)).to(codes.device)[idx]
+
+
+def _string_map(col: CVec, fn, out_dtype: DataType) -> CVec:
+    """Apply str->str or str->scalar per distinct value, gather on device."""
+    d = col.dictionary
+    assert d is not None
+    if out_dtype.is_string:
+        nd, remap = d.map_values(fn)
+        if len(remap) == 0:
+            remap = np.zeros(1, dtype=np.int32)
+        return CVec(STRING, _gather_lut(remap, col.data), col.valid, nd)
+    lut = np.array(
+        [fn(s) for s in d.values] if len(d) else [0],
+        dtype=out_dtype.storage_np_dtype(),
+    )
+    return CVec(out_dtype, _gather_lut(lut, col.data), col.valid)
+
+
+def _as_host_scalar(col: CVec, fname: str = "", arg: str = "argument"):
+    """Host value of a CONSTANT (literal) column.
+
+    Non-constant columns RAISE: silently reading row 0 would apply one
+    row's value to every row (column-valued arguments route through
+    _combo_map instead)."""
+    lit = getattr(col, "literal", None)
+    if lit is None:
+        raise PlanError(
+            f"{fname or 'scalar function'}: the {arg} must be a constant "
+            "(literal) — column-valued arguments are not supported here"
+        )
+    if lit.value is not None and col.dtype.is_string:
+        return str(lit.value)
+    return lit.value
+
+
+def _is_literal(col: CVec) -> bool:
+    return getattr(col, "literal", None) is not None
+
+
+def _f64(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.float64)
+
+
+def dispatch_scalar(
+    name: str, args: list[CVec], out_dtype: DataType, capacity: int, device=None
+) -> CVec:
+    """Evaluate scalar function ``name`` over argument columns of
+    ``capacity`` rows; ``device`` places the result of a function without
+    arguments (``random()``, ``now()``)."""
+    n = name.lower()
+
+    # ---- math ----------------------------------------------------------------
+    if n in _MATH_UNARY:
+        c = args[0]
+        if c.dtype.is_decimal:
+            from ..exprs.physical import descale
+
+            if n == "abs":
+                return CVec(c.dtype, torch.abs(c.data), c.valid)
+            if n in ("floor", "ceil", "round", "trunc"):
+                scale = 10**c.dtype.scale
+                v = _MATH_UNARY[n](descale(_f64(c.data), c.dtype.scale)) * scale
+                return CVec(c.dtype, v.to(torch.int64), c.valid)
+            data = descale(_f64(c.data), c.dtype.scale)
+        else:
+            data = c.data
+        if out_dtype.is_integer:
+            out = _MATH_UNARY[n](data).to(_storage(out_dtype))
+            return CVec(out_dtype, out, c.valid)
+        return CVec(FLOAT64, _MATH_UNARY[n](_f64(data)), c.valid)
+    if n in ("power", "pow"):
+        a, b = args
+        return CVec(FLOAT64, torch.pow(_f64(a.data), _f64(b.data)), a.valid & b.valid)
+    if n == "atan2":
+        a, b = args
+        return CVec(FLOAT64, torch.atan2(_f64(a.data), _f64(b.data)), a.valid & b.valid)
+    if n == "random":
+        # drawn on the host per call (non-deterministic like the reference)
+        out = torch.from_numpy(np.random.rand(capacity)).to(device)
+        return CVec(FLOAT64, out, torch.ones(capacity, dtype=torch.bool, device=device))
+    if n == "array":
+        raise NotImplementedError("fixed-size list columns (array) are ported in slice 5")
+
+    # ---- generic -----------------------------------------------------------
+    if n == "nullif":
+        a, b = args
+        if a.dtype.is_string and b.dtype.is_string:
+            from ..exprs.physical import harmonize_strings
+
+            a2, b2 = harmonize_strings(a, b)
+            eq = (a2.data == b2.data) & a2.valid & b2.valid
+            return CVec(a.dtype, a2.data, a2.valid & ~eq, a2.dictionary)
+        eq = (a.data == b.data) & a.valid & b.valid
+        return CVec(a.dtype, a.data, a.valid & ~eq, a.dictionary)
+    if n == "coalesce":
+        from ..exprs.physical import cast_column, harmonize_strings
+
+        out = cast_column(args[0], out_dtype)
+        for nxt in args[1:]:
+            nxt = cast_column(nxt, out_dtype)
+            if out_dtype.is_string:
+                out, nxt = harmonize_strings(out, nxt)
+            data = K.where_bits(out.valid, out.data, nxt.data)
+            out = CVec(out_dtype, data, out.valid | nxt.valid, out.dictionary)
+        return out
+    if n == "isnull":
+        return CVec(BOOL, ~args[0].valid, torch.ones_like(args[0].valid))
+
+    # ---- datetime -------------------------------------------------------------
+    from . import datetime_fns as DT
+
+    if n in ("date_part", "datepart", "extract"):
+        part = _as_host_scalar(args[0])
+        c = args[1]
+        if c.dtype == DATE32:
+            out = DT.extract_field(str(part), c.data)
+        else:
+            days, us = DT.timestamp_to_days_us(c.data)
+            out = DT.extract_field(str(part), days, us)
+        if out.is_floating_point():  # epoch: saturate to int32, as XLA converts
+            out = torch.clamp(out, -(2**31), 2**31 - 1)
+        return CVec(INT32, out.to(torch.int32), c.valid)
+    if n == "date_trunc":
+        gran = _as_host_scalar(args[0])
+        c = args[1]
+        if c.dtype == DATE32:
+            return CVec(DATE32, DT.date_trunc_days(str(gran), c.data), c.valid)
+        return CVec(TIMESTAMP_US, DT.date_trunc_us(str(gran), c.data), c.valid)
+    if n in ("to_timestamp", "to_timestamp_micros", "to_timestamp_seconds", "to_timestamp_millis"):
+        from ..exprs.physical import cast_column
+
+        c = args[0]
+        per = {"to_timestamp_seconds": 1_000_000, "to_timestamp_millis": 1000}.get(n)
+        if per is not None and c.dtype.is_integer:
+            return CVec(TIMESTAMP_US, c.data.to(torch.int64) * per, c.valid)
+        return cast_column(c, TIMESTAMP_US)
+    if n == "convert_tz":
+        # fork cube_ext semantics (datetime_expressions.rs:51-113):
+        # shift '+HH:MM' applied as (hour*60 + signum(hour)*minute) minutes
+        c, sh = args[0], args[1]
+
+        def _shift_us(s: str) -> int:
+            hm = str(s).split(":")
+            if len(hm) != 2:
+                raise PlanError(f"Can't parse timezone shift '{s}'")
+            try:
+                h, m = int(hm[0]), int(hm[1])
+            except ValueError:
+                raise PlanError(f"Can't parse timezone shift '{s}'")
+            sig = 1 if h > 0 else (-1 if h < 0 else 0)
+            return (h * 60 + sig * m) * 60 * 1_000_000
+
+        if _is_literal(sh):
+            off = _shift_us(_as_host_scalar(sh, n, "shift"))
+            return CVec(TIMESTAMP_US, c.data + off, c.valid & sh.valid)
+        lut = _string_map(sh, _shift_us, INT64)
+        return CVec(TIMESTAMP_US, c.data + lut.data, c.valid & sh.valid)
+    if n == "now":
+        import time
+
+        now_us = int(time.time() * 1e6)
+        return CVec(
+            TIMESTAMP_US,
+            torch.full((capacity,), now_us, dtype=torch.int64, device=device),
+            torch.ones(capacity, dtype=torch.bool, device=device),
+        )
+
+    # ---- string: single-column str->str / str->int via dictionary LUT ------
+    if n in _STRING_TO_STRING:
+        return _string_map(args[0], _STRING_TO_STRING[n], STRING)
+    if n in _STRING_TO_INT:
+        return _string_map(args[0], _STRING_TO_INT[n], INT32)
+
+    # string fns whose extra args are COLUMNS: distinct-combo evaluation
+    # (the reference evaluates these vectorized per row,
+    # string_expressions.rs; here fn runs once per distinct combination)
+    if n in _ROW_FNS and len(args) > 1 and not all(_is_literal(a) for a in args[1:]):
+        return _combo_map(args, _ROW_FNS[n], out_dtype)
+
+    # string fns with scalar (literal) extra args -> still per-distinct-value
+    if n in ("substr", "substring"):
+        start = int(_as_host_scalar(args[1]))
+        length = int(_as_host_scalar(args[2])) if len(args) > 2 else None
+        return _string_map(args[0], lambda s: _sql_substr(s, start, length), STRING)
+    if n in ("left", "right", "repeat"):
+        k = int(_as_host_scalar(args[1]))
+        return _string_map(args[0], lambda s: _ROW_FNS[n](s, k), STRING)
+    if n in ("lpad", "rpad"):
+        k = int(_as_host_scalar(args[1]))
+        fill = str(_as_host_scalar(args[2])) if len(args) > 2 else " "
+        return _string_map(args[0], lambda s: _ROW_FNS[n](s, k, fill), STRING)
+    if n in ("replace", "translate"):
+        frm = str(_as_host_scalar(args[1]))
+        to = str(_as_host_scalar(args[2]))
+        return _string_map(args[0], lambda s: _ROW_FNS[n](s, frm, to), STRING)
+    if n == "split_part":
+        delim = str(_as_host_scalar(args[1]))
+        idx = int(_as_host_scalar(args[2]))
+        return _string_map(args[0], lambda s: _sql_split_part(s, delim, idx), STRING)
+    if n == "starts_with":
+        prefix = str(_as_host_scalar(args[1]))
+        d = args[0].dictionary
+        assert d is not None
+        lut = d.predicate_lut(lambda s: s.startswith(prefix))
+        if len(lut) == 0:
+            lut = np.zeros(1, dtype=bool)
+        return CVec(BOOL, _gather_lut(lut, args[0].data), args[0].valid)
+    if n == "strpos":
+        sub = str(_as_host_scalar(args[1]))
+        return _string_map(args[0], lambda s: s.find(sub) + 1, INT32)
+    if n == "regexp_replace":
+        pat = str(_as_host_scalar(args[1]))
+        rep = str(_as_host_scalar(args[2]))
+        rx = _re.compile(pat)
+        count = 1
+        if len(args) > 3 and "g" in str(_as_host_scalar(args[3])):
+            count = 0
+        return _string_map(args[0], lambda s: rx.sub(rep, s, count=count), STRING)
+    if n == "regexp_match":
+        pat = str(_as_host_scalar(args[1]))
+        return _string_map(args[0], lambda s: _sql_regexp_match(s, pat), STRING)
+    if n == "to_hex":
+        return _int_map_by_unique(args[0], lambda v: format(int(v), "x"))
+    if n == "chr":
+        return _int_map_by_unique(args[0], lambda v: chr(int(v)))
+    if n in ("concat", "concat_ws"):
+        return _concat_columns(n, args)
+
+    raise PlanError(f"scalar function '{name}' not implemented")
+
+
+def _storage(dt: DataType) -> torch.dtype:
+    from ..device import torch_dtype
+
+    return torch_dtype(dt.storage_np_dtype())
+
+
+def _unique_inverse(host: np.ndarray):
+    """(distinct values, inverse) of a host array, never empty."""
+    uniq, inv = np.unique(host, return_inverse=True)
+    if len(uniq) == 0:
+        uniq, inv = np.zeros(1, host.dtype), np.zeros(len(host), np.int64)
+    return uniq, np.asarray(inv).reshape(-1)
+
+
+def _codes_col(ucodes: np.ndarray, inv: np.ndarray, valid, like: torch.Tensor, d: StringDict) -> CVec:
+    """A string column from per-distinct codes and each row's distinct
+    index, on ``like``'s device."""
+    return CVec(STRING, torch.from_numpy(ucodes[inv]).to(like.device), valid, d)
+
+
+def _int_map_by_unique(col: CVec, fn) -> CVec:
+    """int column -> string column, computing fn once per DISTINCT value."""
+    uniq, inv = _unique_inverse(host_numpy(col.data))
+    d, ucodes = StringDict.from_strings([fn(v) for v in uniq])
+    return _codes_col(ucodes, inv, col.valid, col.data, d)
+
+
+def _col_string_codes(col: CVec):
+    """(codes, valid, values) with values a host list of distinct strings.
+
+    String columns pass their dictionary codes through; other types reduce
+    to distinct values first and format only those."""
+    if col.dtype.is_string:
+        return host_numpy(col.data), host_numpy(col.valid), list(col.dictionary.values)
+    uniq, inv = _unique_inverse(host_numpy(col.data))
+    dt = col.dtype
+    if dt.is_decimal:
+        vals = [f"{v / 10**dt.scale:.{dt.scale}f}" for v in uniq]
+    elif dt == DATE32:
+        vals = [str(np.datetime64(int(v), "D")) for v in uniq]
+    elif dt == TIMESTAMP_US:
+        vals = [str(np.datetime64(int(v), "us")) for v in uniq]
+    elif dt.is_bool:
+        vals = [("true" if v else "false") for v in uniq]
+    else:
+        vals = [str(v) for v in uniq]
+    return inv, host_numpy(col.valid), vals
+
+
+def _host_values(col: CVec):
+    """(combo codes int64 with -1 where null, typed host values per code).
+
+    String columns contribute their dictionary codes directly; other types
+    reduce to distinct values so host work is per-distinct."""
+    valid = host_numpy(col.valid)
+    if col.dtype.is_string:
+        vals = [str(v) for v in col.dictionary.values] if col.dictionary and len(col.dictionary) else [""]
+        codes = np.clip(host_numpy(col.data).astype(np.int64), 0, len(vals) - 1)
+        return np.where(valid, codes, -1), vals
+    uniq, inv = _unique_inverse(host_numpy(col.data))
+    dt = col.dtype
+    if dt.is_decimal:
+        vals = [v / 10**dt.scale for v in uniq.tolist()]
+    elif dt.is_float:
+        vals = [float(v) for v in uniq]
+    elif dt.is_bool:
+        vals = [bool(v) for v in uniq]
+    else:
+        vals = [int(v) for v in uniq]
+    return np.where(valid, inv.astype(np.int64), -1), vals
+
+
+def _combo_map(cols: list[CVec], fn, out_dtype: DataType) -> CVec:
+    """Vectorized multi-column scalar function: rows reduce to per-column
+    code tuples, np.unique(axis=0) finds the distinct combinations, fn runs
+    once per combination, and results ship back as one device copy.  Null
+    in any argument nulls the row (standard SQL scalar-function
+    semantics)."""
+    mats, values_l = [], []
+    for c in cols:
+        codes, vals = _host_values(c)
+        mats.append(codes)
+        values_l.append(vals)
+    mat = np.stack(mats, axis=1)  # [nrows, k]
+    combos, inv = np.unique(mat, axis=0, return_inverse=True)
+    inv = np.asarray(inv).reshape(-1)
+    ok = (combos >= 0).all(axis=1)
+    valid = cols[0].valid
+    for c in cols[1:]:
+        valid = valid & c.valid
+    results = [
+        fn(*[values_l[j][int(cd)] for j, cd in enumerate(row)]) if k else None
+        for row, k in zip(combos, ok)
+    ]
+    if out_dtype.is_string:
+        d, ucodes = StringDict.from_strings(["" if r is None else r for r in results])
+        return _codes_col(ucodes, inv, valid, cols[0].data, d)
+    lut = np.array([0 if r is None else r for r in results], dtype=out_dtype.storage_np_dtype())
+    return CVec(out_dtype, torch.from_numpy(lut[inv]).to(cols[0].data.device), valid)
+
+
+def _sql_substr(s, start, length=None):
+    lo = max(int(start) - 1, 0)
+    if length is None:
+        return s[lo:]
+    if length < 0:
+        raise PlanError("substr: negative substring length not allowed")
+    # negative start consumes length before the string begins (postgres)
+    end = int(start) - 1 + int(length)
+    return s[lo:max(end, lo)]
+
+
+def _sql_lpad(s, k, fill=" "):
+    k = int(k)
+    if len(s) >= k:
+        return s[:k]
+    return (fill * k)[: k - len(s)] + s if fill else s
+
+
+def _sql_rpad(s, k, fill=" "):
+    k = int(k)
+    if len(s) >= k:
+        return s[:k]
+    return s + (fill * k)[: k - len(s)] if fill else s
+
+
+def _sql_split_part(s, delim, idx):
+    parts = s.split(delim)
+    return parts[int(idx) - 1] if 1 <= int(idx) <= len(parts) else ""
+
+
+def _sql_translate(s, frm, to):
+    tbl = str.maketrans(frm[: len(to)], to[: len(frm)], frm[len(to):])
+    return s.translate(tbl)
+
+
+def _sql_regexp_replace(s, pat, rep, flags=""):
+    count = 0 if "g" in flags else 1
+    return _re.compile(pat).sub(rep, s, count=count)
+
+
+def _sql_regexp_match(s, pat):
+    m = _re.compile(pat).search(s)
+    return m.group(0) if m else ""
+
+
+# row-semantics table for column-argument dispatch (_combo_map); the
+# literal-argument paths of dispatch_scalar stay per-distinct-dictionary-value
+_ROW_FNS: dict[str, Callable] = {
+    "substr": _sql_substr,
+    "substring": _sql_substr,
+    "left": lambda s, k: s[: int(k)] if k >= 0 else s[: len(s) + int(k)],
+    "right": lambda s, k: s[-int(k):] if k > 0 else (s[-int(k) - len(s):] if k < 0 else ""),
+    "repeat": lambda s, k: s * int(k),
+    "lpad": _sql_lpad,
+    "rpad": _sql_rpad,
+    "replace": lambda s, frm, to: s.replace(frm, to),
+    "translate": _sql_translate,
+    "split_part": _sql_split_part,
+    "starts_with": lambda s, p: s.startswith(p),
+    "strpos": lambda s, sub: s.find(sub) + 1,
+    "regexp_replace": _sql_regexp_replace,
+    "regexp_match": _sql_regexp_match,
+}
+
+
+def _concat_columns(n: str, args: list[CVec]) -> CVec:
+    """concat / concat_ws via distinct-combo pairing: rows reduce to code
+    tuples, np.unique(axis=0) finds the distinct combinations, and strings
+    materialize once per combination.
+
+    Null semantics mirror the reference (string_expressions.rs concat):
+    null arguments contribute nothing and the result is never null."""
+    sep = ""
+    cols = args
+    if n == "concat_ws":
+        sep = _as_host_scalar(args[0], "concat_ws", "separator")
+        cols = args[1:]
+        if sep is None:
+            like = (cols[0] if cols else args[0]).data
+            return CVec(
+                STRING,
+                torch.zeros_like(like, dtype=torch.int32),
+                torch.zeros_like(like, dtype=torch.bool),
+                StringDict.empty(),
+            )
+        sep = str(sep)
+    codes_l, values_l = [], []
+    for c in cols:
+        codes, valid, values = _col_string_codes(c)
+        codes_l.append(np.where(valid, codes, -1).astype(np.int64))
+        values_l.append(values)
+    mat = np.stack(codes_l, axis=1)  # [nrows, k]
+    combos, inv = np.unique(mat, axis=0, return_inverse=True)
+    strs = []
+    for row in combos:
+        parts = [values_l[j][int(c)] for j, c in enumerate(row) if c >= 0]
+        strs.append("".join(parts) if n == "concat" else sep.join(parts))
+    d, ucodes = StringDict.from_strings(strs)
+    like = cols[0].data
+    return _codes_col(ucodes, np.asarray(inv).reshape(-1), torch.ones_like(like, dtype=torch.bool), like, d)

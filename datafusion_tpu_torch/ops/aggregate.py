@@ -1,14 +1,16 @@
-"""HashAggregateExec equivalent: vectorized GROUP BY.
+"""HashAggregateExec equivalent: sort/segment-based vectorized GROUP BY.
 
 Port of ``datafusion_tpu/ops/aggregate.py`` (reference:
 datafusion/src/physical_plan/hash_aggregate.rs, modes Partial/Final/Full,
-the row-by-row ``group_aggregate_batch`` hot loop at :409).  Single and
-partial modes run through the stage compiler's aggregate
-(``physical.stage_compiler._traced_aggregate``): the no-group path and the
-small-domain path, whose sums and counts come from the hand-written kernel
-in ``ops/smalldomain.py``.  The general sort-based GROUP BY is ported in
-slice 2; the final-mode merge of partial states (two-phase aggregation
-across devices) in slice 7.
+the row-by-row ``group_aggregate_batch`` hot loop at :409).  No hash table:
+rows are sorted by their group keys, group ids come from boundary
+detection + cumsum, and every aggregate is a segment reduction
+(``_eval_aggregate``).  Single and partial modes run through the stage
+compiler's aggregate (``physical.stage_compiler._traced_aggregate``): the
+no-group path, the small-domain path, whose sums and counts come from the
+hand-written kernel in ``ops/smalldomain.py``, and the sort path here.
+The final-mode merge of partial states (two-phase aggregation across
+devices) is ported in slice 7, user-defined aggregates in slice 5.
 
 Aggregate state layout (partial columns per logical aggregate):
   count       -> [count:i64]                 final: sum
@@ -24,12 +26,16 @@ import torch
 
 from ..columnar.column import Column
 from ..columnar.table import Table, round_capacity
+from ..device import torch_dtype
 from ..errors import InternalError, PlanError
-from ..exprs.physical import PhysicalExpr
+from ..exprs.physical import PhysicalExpr, descale
 from ..functions.aggregates import aggregate_return_type
 from ..types import Field, Schema
 from ..types.dtypes import DataType, FLOAT64, INT64
+from . import kernels as K
 from .base import ExecutionPlan
+
+VARIANCE_FUNS = ("variance", "var", "var_samp", "var_pop", "stddev", "stddev_samp", "stddev_pop")
 
 
 class PhysAggExpr:
@@ -79,7 +85,7 @@ class PhysAggExpr:
             return [(f"{self.name}[{f}]", t), (f"{self.name}[count]", INT64)]
         if f == "avg":
             return [(f"{self.name}[sum]", FLOAT64), (f"{self.name}[count]", INT64)]
-        if f in ("variance", "var", "var_samp", "var_pop", "stddev", "stddev_samp", "stddev_pop"):
+        if f in VARIANCE_FUNS:
             return [
                 (f"{self.name}[n]", INT64),
                 (f"{self.name}[sum]", FLOAT64),
@@ -175,3 +181,156 @@ class HashAggregateExec(ExecutionPlan):
             f"HashAggregateExec[{self.mode}]: "
             f"group={[n for _, n in self.group_expr]}, aggr={self.aggr_expr}"
         )
+
+
+# ---------------------------------------------------------------------------
+# helpers
+# ---------------------------------------------------------------------------
+
+
+def _segment_first_index(gid, cap, alive):
+    """Index (into sorted order) of the first row of each segment (entries
+    past the real segment count are garbage; callers mask by ngroups)."""
+    first_pos, _ = K._segment_positions(gid)
+    return first_pos
+
+
+def _neutral(ordk: torch.Tensor, f: str) -> torch.Tensor:
+    """The identity of min (f == "min") or max over ``ordk``'s dtype."""
+    if ordk.is_floating_point():
+        v = float("inf") if f == "min" else float("-inf")
+    else:
+        info = torch.iinfo(ordk.dtype)
+        v = info.max if f == "min" else info.min
+    return torch.tensor(v, dtype=ordk.dtype, device=ordk.device)
+
+
+def _eval_aggregate(a: PhysAggExpr, t: Table, perm, gid, cap, alive, ngroups, emit_state: bool):
+    """Compute one aggregate over sorted/grouped rows.
+
+    ``perm`` is the group sort's permutation of ``t``'s rows (None when
+    ``t`` is already in group order).  Returns a list of state Columns
+    (emit_state) or [final Column], each [cap] in segment order."""
+    f = a.fun
+    if a.distinct and f not in ("count", "sum", "avg", "min", "max"):
+        raise PlanError(f"DISTINCT not supported for {f}")
+    dev = gid.device
+    gvalid = torch.arange(cap, device=dev) < ngroups
+
+    if a.expr is None:  # COUNT(*)
+        cnt = K.segment_sum(alive.to(torch.int64), gid, cap)
+        return [Column(INT64, cnt, gvalid)]
+    if a.udf is not None:
+        raise NotImplementedError("user-defined aggregates are ported in slice 5")
+
+    v = a.expr.evaluate(t)
+    if perm is None:
+        data, valid = v.data, v.valid & alive
+    else:
+        data, valid = K.gather(v.data, perm), v.valid[perm] & alive
+
+    if a.distinct:
+        # mask duplicate (group, value) pairs so each distinct value counts once
+        data, valid = _distinct_mask(v, perm, gid, data, valid, cap)
+
+    def count():
+        return K.segment_sum(valid.to(torch.int64), gid, cap)
+
+    if f == "count":
+        return [Column(INT64, count(), gvalid)]
+
+    if f == "sum":
+        rt = a.return_type()
+        dt = torch_dtype(rt.storage_np_dtype())
+        acc = K.signed_view(data.to(dt))
+        s = K.segment_sum(torch.where(valid, acc, torch.zeros((), dtype=acc.dtype, device=dev)), gid, cap)
+        s = s.view(dt)
+        cnt = count()
+        sum_col = Column(rt, s, gvalid & (cnt > 0))
+        if emit_state:
+            return [sum_col, Column(INT64, cnt, gvalid)]
+        return [sum_col]
+
+    if f in ("min", "max"):
+        t_in = v.dtype
+        ordk = data if t_in.is_float else K.orderable_key(data, t_in, v.vrange)
+        vals = torch.where(valid, ordk, _neutral(ordk, f))
+        red = K.segment_min(vals, gid, cap) if f == "min" else K.segment_max(vals, gid, cap)
+        if t_in.is_float:
+            zero = signed_zeros(data, valid, f)
+            red = zero_sign_fix(red, f, K.segment_sum(zero.to(torch.int64), gid, cap) > 0)
+        cnt = count()
+        out = red.to(torch_dtype(t_in.storage_np_dtype()))
+        col = Column(t_in, out, gvalid & (cnt > 0), v.dictionary)
+        if emit_state:
+            return [col, Column(INT64, cnt, gvalid)]
+        return [col]
+
+    if f == "avg":
+        fd = _to_float(data, v.dtype)
+        s = K.segment_sum(torch.where(valid, fd, 0.0), gid, cap)
+        cnt = count()
+        if emit_state:
+            return [Column(FLOAT64, s, gvalid), Column(INT64, cnt, gvalid)]
+        return [Column(FLOAT64, s / torch.clamp(cnt, min=1), gvalid & (cnt > 0))]
+
+    if f in VARIANCE_FUNS:
+        fd = _to_float(data, v.dtype)
+        n = count()
+        s = K.segment_sum(torch.where(valid, fd, 0.0), gid, cap)
+        ss = K.segment_sum(torch.where(valid, fd * fd, 0.0), gid, cap)
+        if emit_state:
+            return [Column(INT64, n, gvalid), Column(FLOAT64, s, gvalid), Column(FLOAT64, ss, gvalid)]
+        out, ok = _finalize_var(f, n, s, ss)
+        return [Column(FLOAT64, out, gvalid & ok)]
+
+    raise PlanError(f"aggregate '{f}' not implemented")
+
+
+def signed_zeros(x: torch.Tensor, valid: torch.Tensor, f: str) -> torch.Tensor:
+    """The valid rows of x that decide the sign of a zero min (f == "min":
+    the -0.0 rows) or max (the 0.0 rows)."""
+    return valid & (x == 0) & (torch.signbit(x) == (f == "min"))
+
+
+def zero_sign_fix(red: torch.Tensor, f: str, has: torch.Tensor) -> torch.Tensor:
+    """A float min or max with the reference's signed zeros: XLA orders
+    -0.0 below 0.0, where torch takes either.  ``has``: the group holds a
+    row of ``signed_zeros``."""
+    lo, hi = (-0.0, 0.0) if f == "min" else (0.0, -0.0)
+    return torch.where(red == 0, torch.where(has, lo, hi).to(red.dtype), red)
+
+
+def _distinct_mask(v, perm, gid, data, valid, cap):
+    """Keep the first occurrence of each (group, value) pair; null out the
+    rest.  Sorts rows by (gid, value) and detects boundaries, the same
+    primitive as grouping itself (the reference uses per-group HashSets,
+    distinct_expressions.rs)."""
+    ordv = K.orderable_key(data, v.dtype)
+    keys = torch.where(valid, ordv, _neutral(ordv, "min"))  # nulls sort last
+    order = K.sort_perm((gid, keys))
+    g2, d2, va2 = gid[order], ordv[order], valid[order]
+    prev_same = (
+        (g2 == torch.roll(g2, 1)) & (d2 == torch.roll(d2, 1)) & (va2 & torch.roll(va2, 1))
+    )
+    prev_same[0] = False
+    keep = torch.empty_like(valid)
+    keep[order] = va2 & ~prev_same  # back to the rows' own order
+    return data, valid & keep
+
+
+def _finalize_var(f, n, s, ss):
+    """(value, defined) of a variance-family aggregate from its moments."""
+    nf = n.to(torch.float64)
+    mean = s / torch.clamp(nf, min=1.0)
+    m2 = torch.clamp(ss - nf * mean * mean, min=0.0)
+    pop = f.endswith("_pop")
+    var = m2 / torch.clamp(nf if pop else nf - 1.0, min=1.0)
+    out = torch.sqrt(var) if f.startswith("stddev") else var
+    return out, n >= (1 if pop else 2)
+
+
+def _to_float(data, dtype):
+    if dtype.is_decimal:
+        return descale(data.to(torch.float64), dtype.scale)
+    return data.to(torch.float64)

@@ -1,5 +1,5 @@
-"""Basic physical operators: scan, projection, filter, limit, empty,
-explain.
+"""Basic physical operators: scan, projection, filter, limit/skip, union,
+empty, explain.
 
 Port of ``datafusion_tpu/ops/basic.py``.  Reference equivalents:
 - MemoryExec      (datafusion/src/physical_plan/memory.rs:39)
@@ -7,18 +7,22 @@ Port of ``datafusion_tpu/ops/basic.py``.  Reference equivalents:
 - FilterExec      (filter.rs:48)  -> mask + stable-sort compaction
 - GlobalLimitExec (limit.rs:44) -> row-count clamp (live rows are always
   compacted to the front, so LIMIT is O(1))
+- SkipExec        (fork OFFSET, skip.rs:41) -> left shift of the live rows
+- UnionExec       (union.rs:34) -> concatenation + dictionary merge
 - EmptyExec/ExplainExec (empty.rs:37, explain.rs:38)
-SkipExec and UnionExec are ported in slice 2.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ..columnar.column import Column
-from ..columnar.table import Table
-from ..exprs.physical import PhysicalExpr
+from ..columnar.dictionary import StringDict
+from ..columnar.table import Table, round_capacity
+from ..exprs.physical import PhysicalExpr, cast_column
 from ..types import Field, Schema
+from ..types.dtypes import STRING
 from . import kernels as K
 from .base import ExecutionPlan
 
@@ -140,6 +144,115 @@ class GlobalLimitExec(ExecutionPlan):
 
     def _display_line(self):
         return f"GlobalLimitExec: {self.n}"
+
+
+class SkipExec(ExecutionPlan):
+    """OFFSET (fork's skip.rs:41): shift live rows left by n."""
+
+    def __init__(self, n: int, input: ExecutionPlan):
+        super().__init__()
+        self.n = n
+        self.input = input
+
+    def schema(self):
+        return self.input.schema()
+
+    def children(self):
+        return [self.input]
+
+    def with_new_children(self, c):
+        return SkipExec(self.n, c[0])
+
+    def _execute(self) -> Table:
+        t = self.input.execute()
+        n = min(self.n, t.nrows)
+        if n == 0:
+            return t
+        cols = []
+        for c in t.columns:
+            data = torch.cat([c.data[n:], c.data.new_zeros(n)])
+            valid = torch.cat([c.valid[n:], c.valid.new_zeros(n)])
+            cols.append(Column(c.dtype, data, valid, c.dictionary))
+        return Table(t.names, cols, t.nrows - n, device=t.device)
+
+    def _display_line(self):
+        return f"SkipExec: {self.n}"
+
+
+class UnionExec(ExecutionPlan):
+    def __init__(self, inputs: list[ExecutionPlan], schema: Schema):
+        super().__init__()
+        self.inputs = inputs
+        self._schema = schema
+
+    def schema(self):
+        return self._schema
+
+    def children(self):
+        return list(self.inputs)
+
+    def with_new_children(self, c):
+        return UnionExec(list(c), self._schema)
+
+    def _execute(self) -> Table:
+        return concat_tables([i.execute() for i in self.inputs], self._schema)
+
+    def _display_line(self):
+        return "UnionExec"
+
+
+def concat_tables(tables: list[Table], schema: Schema) -> Table:
+    """Concatenate the live rows of several tables into one compacted
+    table, casting to the target schema and merging string dictionaries.
+
+    No host sync: the pieces are joined at their full capacities and one
+    compaction moves the live rows to the front (the reference writes each
+    piece at a traced offset instead)."""
+    dev = tables[0].device
+    keep = torch.cat([
+        torch.arange(t.capacity, device=dev) < t.nrows_dev for t in tables
+    ])
+    out_cap = round_capacity(keep.shape[0])
+    keep = torch.cat([keep, keep.new_zeros(out_cap - keep.shape[0])])
+    datas, valids, dictionaries = [], [], []
+    for i, f in enumerate(schema.fields):
+        pieces = [cast_column(t.columns[i], f.dtype) for t in tables]
+        merged = None
+        if f.dtype.is_string:
+            pieces, merged = _merge_dictionaries(pieces)
+        data = torch.cat([p.data for p in pieces])
+        valid = torch.cat([p.valid for p in pieces])
+        pad = out_cap - data.shape[0]
+        datas.append(torch.cat([data, data.new_zeros(pad)]))
+        valids.append(torch.cat([valid, valid.new_zeros(pad)]))
+        dictionaries.append(merged)
+    out_d, out_v, total = K.filter_compact(tuple(datas), tuple(valids), keep, out_cap)
+    cols = [
+        Column(f.dtype, d, v, dic)
+        for f, dic, d, v in zip(schema.fields, dictionaries, out_d, out_v)
+    ]
+    return Table(schema.names(), cols, total, device=dev)
+
+
+def _merge_dictionaries(pieces: list[Column]):
+    """The pieces of one string column remapped onto one sorted dictionary
+    (no remap when they already share one)."""
+    live = [p.dictionary for p in pieces if p.dictionary is not None and len(p.dictionary) > 0]
+    distinct = {id(d): d for d in live}
+    if len(distinct) <= 1:
+        merged = live[0] if live else StringDict.empty()
+        return [Column(STRING, p.data, p.valid, merged) for p in pieces], merged
+    all_vals = np.unique(np.concatenate([d.values.astype(str) for d in distinct.values()]))
+    merged = StringDict(all_vals.astype(object))
+    out = []
+    for p in pieces:
+        data = p.data
+        if p.dictionary is not None and len(p.dictionary) > 0:
+            remap = np.searchsorted(all_vals, p.dictionary.values.astype(str)).astype(np.int32)
+            idx = torch.clamp(p.data, 0, len(remap) - 1).to(torch.int64)
+            data = torch.from_numpy(remap).to(p.data.device)[idx]
+        out.append(Column(STRING, data, p.valid, merged))
+    return out, merged
 
 
 class EmptyExec(ExecutionPlan):

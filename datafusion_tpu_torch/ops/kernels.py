@@ -1,14 +1,24 @@
-"""Core columnar primitives on torch tensors (sort subset).
+"""Core columnar primitives on torch tensors: sorting, gathering, grouping
+and segment reductions.
 
-Port of the sort primitives of ``datafusion_tpu/ops/kernels.py``.  The
-reference carries payload columns through one variadic XLA sort because
-gathers are slow on a TPU; on a GPU a gather is cheap, so here a sort
-computes one permutation (successive stable ``torch.sort`` passes from the
-least significant key up) and every payload is gathered once at the end.
+Port of ``datafusion_tpu/ops/kernels.py``.  The reference carries payload
+columns through one variadic XLA sort, packs gathers into int32 words and
+batches the boundary reads of many reductions into one packed gather,
+because gathers are slow on a TPU.  On a GPU a gather is cheap, so here a
+sort computes one permutation (successive stable ``torch.sort`` passes
+from the least significant key up) and every column is gathered by
+itself (``take_rows``).
 
-This slice ports what the fused Q1 stage and SortExec reach:
-``orderable_key``, ``cosort``, ``lexsort_apply`` and ``filter_compact``.
-The grouping, join and segment primitives are ported in slices 2-3.
+Segment reductions assume SORTED dense group ids (0..ngroups-1 for live
+rows, cap-1 for the trailing dead rows), the invariant every grouping
+path produces.  Integer sums are one global cumsum read at the segment
+ends, exact mod 2^64 like the reference; float sums, minima and maxima are
+a segmented scan that restarts at each boundary, so each segment adds
+only its own values, in a fixed order (no cancellation, and the same
+result from run to run).  Boundary positions come from a scatter of row
+positions, with no host sync.
+
+The join primitives are ported with the joins (slice 3).
 """
 
 from __future__ import annotations
@@ -49,14 +59,59 @@ def orderable_key(data: torch.Tensor, dtype: DataType, vrange=None) -> torch.Ten
     return data.to(torch.int64)
 
 
+def hashable_key(data: torch.Tensor, dtype: DataType) -> torch.Tensor:
+    """int64 key for hashing: floats go through a float32 bitcast (equal
+    float64s map to equal int64s, which is all hashing needs; exactness
+    comes from verifying keys after the probe)."""
+    if dtype.is_float:
+        return data.to(torch.float32).view(torch.int32).to(torch.int64)
+    return data.to(torch.int64)
+
+
+# ---------------------------------------------------------------------------
+# unsigned storage
+#
+# torch (2.11, CUDA) has no gather, select, roll, compare, sort or
+# arithmetic kernels for uint16/32/64.  Work that moves bits unchanged runs
+# on the signed view of the same width; ordering and arithmetic convert
+# first (``exprs/physical.py``).
+# ---------------------------------------------------------------------------
+
+_SIGNED_TWIN = {torch.uint16: torch.int16, torch.uint32: torch.int32, torch.uint64: torch.int64}
+
+
+def signed_view(x: torch.Tensor) -> torch.Tensor:
+    """x itself, or the same bits as the signed type of x's width for the
+    unsigned types torch's CUDA kernels leave out."""
+    s = _SIGNED_TWIN.get(x.dtype)
+    return x if s is None else x.view(s)
+
+
+def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] for every storage dtype."""
+    return signed_view(x)[idx].view(x.dtype)
+
+
+def where_bits(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """torch.where(mask, a, b) for two tensors of one storage dtype."""
+    return torch.where(mask, signed_view(a), signed_view(b)).view(a.dtype)
+
+
 # ---------------------------------------------------------------------------
 # sorting & gathering
 # ---------------------------------------------------------------------------
 
 
-def _sortable(k: torch.Tensor) -> torch.Tensor:
-    # torch sorts no bool tensors
-    return k.to(torch.int8) if k.dtype == torch.bool else k
+def sort_key(k: torch.Tensor) -> torch.Tensor:
+    """A key that torch sorts as the reference's XLA sort does: bools as
+    int8 (torch sorts no bools); floats with -0.0 as 0.0 and every NaN as
+    the positive NaN.  XLA standardizes both before it compares; the
+    card's radix sort would otherwise order them by their sign bits."""
+    if k.dtype == torch.bool:
+        return k.to(torch.int8)
+    if k.is_floating_point():
+        return torch.where(torch.isnan(k), float("nan"), k + 0.0)
+    return k
 
 
 def sort_perm(keys: tuple) -> torch.Tensor:
@@ -64,8 +119,8 @@ def sort_perm(keys: tuple) -> torch.Tensor:
     One stable sort per key, least significant first."""
     cap = keys[0].shape[0]
     perm = torch.arange(cap, device=keys[0].device)
-    for k in reversed(keys):
-        order = torch.sort(_sortable(k)[perm], stable=True).indices
+    for k in reversed([sort_key(k) for k in keys]):
+        order = torch.sort(k[perm], stable=True).indices
         perm = perm[order]
     return perm
 
@@ -76,8 +131,8 @@ def cosort(keys: tuple, payloads: tuple, num_keys: int | None = None):
     nk = len(keys) if num_keys is None else num_keys
     perm = sort_perm(tuple(keys[:nk]))
     return (
-        tuple(k[perm] for k in keys),
-        tuple(p[perm] for p in payloads),
+        tuple(gather(k, perm) for k in keys),
+        tuple(gather(p, perm) for p in payloads),
     )
 
 
@@ -129,5 +184,150 @@ def lexsort_apply(
         keys.append(rank)
         keys.append(kk)
     perm = sort_perm(tuple(keys))
-    moved = tuple(p[perm] for p in payloads)
+    moved = tuple(gather(p, perm) for p in payloads)
     return moved, (perm if want_perm else None)
+
+
+def lexsort_perm(
+    ordkeys: tuple,
+    key_valids: tuple,
+    nrows,
+    descs: tuple,
+    nulls_firsts: tuple,
+    dead_mask: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """Permutation form of `lexsort_apply`, for callers that gather other
+    buffers by the sorted order."""
+    _, perm = lexsort_apply(
+        ordkeys, key_valids, (), nrows, descs, nulls_firsts,
+        want_perm=True, dead_mask=dead_mask,
+    )
+    return perm
+
+
+def take_rows(datas: tuple, valids: tuple, idx: torch.Tensor, extra_masks: tuple = ()):
+    """Gather rows of many columns by one index vector, one gather per
+    column.  Returns (datas_out, valids_out, extra_masks_out)."""
+    return (
+        tuple(gather(d, idx) for d in datas),
+        tuple(v[idx] for v in valids),
+        tuple(m[idx] for m in extra_masks),
+    )
+
+
+def take(datas: tuple, valids: tuple, idx: torch.Tensor):
+    """Gather rows by index (the reference's arrow `take` kernel)."""
+    out_d, out_v, _ = take_rows(datas, valids, idx)
+    return out_d, out_v
+
+
+# ---------------------------------------------------------------------------
+# grouping
+# ---------------------------------------------------------------------------
+
+
+def _at(x: torch.Tensor, i) -> torch.Tensor:
+    """x[i] as a 0-dim tensor for a host or 0-dim device index, without
+    waiting for the device."""
+    i = torch.as_tensor(i, dtype=torch.int64, device=x.device).reshape(1)
+    return x.gather(0, i)[0]
+
+
+def _boundary_accum(boundary: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
+    return boundary | (k != torch.roll(k, 1)) | (v != torch.roll(v, 1))
+
+
+def _gid_from_boundary(boundary: torch.Tensor, nrows):
+    cap = boundary.shape[0]
+    alive = torch.arange(cap, device=boundary.device) < nrows
+    boundary = boundary.clone()
+    boundary[0] = True
+    gid = torch.cumsum(boundary & alive, 0) - 1
+    last = torch.clamp(torch.as_tensor(nrows, device=gid.device) - 1, min=0)
+    ngroups = torch.where(torch.as_tensor(nrows, device=gid.device) > 0, _at(gid, last) + 1, 0)
+    gid = torch.where(alive, gid, cap - 1)
+    return gid, ngroups
+
+
+def group_ids_sorted(sorted_keys: tuple, sorted_valids: tuple, nrows):
+    """Given key columns already sorted by `lexsort_perm`, return
+    (gid per row, ngroups).  A group boundary is any change in (key, valid)
+    on any key column (so every NaN key row is a group of its own).  Dead
+    rows get gid == cap-1 and are excluded by callers via ngroups."""
+    cap = sorted_keys[0].shape[0]
+    boundary = torch.zeros(cap, dtype=torch.bool, device=sorted_keys[0].device)
+    for k, v in zip(sorted_keys, sorted_valids):
+        boundary = _boundary_accum(boundary, k, v)
+    return _gid_from_boundary(boundary, nrows)
+
+
+def _segment_starts(gid: torch.Tensor) -> torch.Tensor:
+    start = torch.ones_like(gid, dtype=torch.bool)
+    start[1:] = gid[1:] != gid[:-1]
+    return start
+
+
+def _segment_positions(gid: torch.Tensor):
+    """(first_pos, last_pos) per dense segment ordinal, segment-ordered.
+
+    Only entries [0, #segments) are meaningful; callers mask by ngroups
+    (the rest read 0, in gather range)."""
+    cap = gid.shape[0]
+    pos = torch.arange(cap, device=gid.device)
+    start = _segment_starts(gid)
+    end = torch.ones_like(start)
+    end[:-1] = start[1:]
+    seg = torch.cumsum(start, 0) - 1  # each row's segment ordinal
+
+    def scatter(at):
+        # rows that are not at a segment edge write to slot `cap`, dropped
+        out = torch.zeros(cap + 1, dtype=torch.int64, device=gid.device)
+        return out.scatter_(0, torch.where(at, seg, cap), pos)[:cap]
+
+    return scatter(start), scatter(end)
+
+
+def _segment_scan(values: torch.Tensor, gid: torch.Tensor, combine):
+    """Running within-segment reduction (restarts at boundaries): a
+    Hillis-Steele scan, log2(cap) passes, each row combining with the row
+    `d` back while that row lies in its segment."""
+    cap = values.shape[0]
+    pos = torch.arange(cap, device=values.device)
+    seg_start = torch.cummax(torch.where(_segment_starts(gid), pos, 0), 0).values
+    run = values
+    d = 1
+    while d < cap:
+        same = pos - d >= seg_start
+        run = torch.where(same, combine(torch.roll(run, d), run), run)
+        d *= 2
+    return run
+
+
+def _wrap_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """int64 wrapping arithmetic result -> ``dtype`` (uint64 by bitcast)."""
+    return x.view(dtype) if dtype == torch.uint64 else x.to(dtype)
+
+
+def segment_sum(values: torch.Tensor, gid: torch.Tensor, num_segments: int):
+    _, last = _segment_positions(gid)
+    if values.is_floating_point():
+        out = _segment_scan(values, gid, torch.add)[last]
+    else:
+        # exact for ints, mod 2^64: one global cumsum read at the segment
+        # ends, minus the previous segment's end
+        dt = values.dtype
+        v = values.view(torch.int64) if dt == torch.uint64 else values.to(torch.int64)
+        hi = torch.cumsum(v, 0)[last]
+        prev = torch.cat([hi.new_zeros(1), hi[:-1]])
+        out = _wrap_to(hi - prev, dt)
+    return out[:num_segments]
+
+
+def segment_min(values: torch.Tensor, gid: torch.Tensor, num_segments: int):
+    _, last = _segment_positions(gid)
+    return _segment_scan(values, gid, torch.minimum)[last][:num_segments]
+
+
+def segment_max(values: torch.Tensor, gid: torch.Tensor, num_segments: int):
+    _, last = _segment_positions(gid)
+    return _segment_scan(values, gid, torch.maximum)[last][:num_segments]

@@ -78,10 +78,12 @@ class FuseStages:
             return StageExec(plan, root=is_root)
         # the reference fuses a tail above a non-scan input into a
         # TailStageExec; until that is ported (with joins, slice 3) such a
-        # tail runs operator by operator, with the same results.  The inputs
-        # that reach here are an EmptyExec (`SELECT 1 + 1`, a count folded
-        # from statistics) or a stage the grammar ends below (a projection
-        # over LIMIT); joins and host tables raise in the planner
+        # tail runs operator by operator, with the same results.  It sits
+        # above an EmptyExec (`SELECT 1 + 1`, a count folded from
+        # statistics), a UNION, an OFFSET, a stage the grammar ends below (a
+        # grouping subquery, a projection over LIMIT) or an operator whose
+        # expressions read column data on the host; joins and host tables
+        # raise in the planner
         kids = plan.children()
         if not kids:
             return plan

@@ -4,8 +4,9 @@ Port of ``datafusion_tpu/physical/planner.py`` (reference:
 datafusion/src/physical_plan/planner.rs, create_initial_plan :341):
 recursively maps logical nodes to physical operators, and
 create_physical_expr binds expressions to input schemas by column index.
-Nodes and expressions outside the ported slices raise PlanError
-("... is not ported yet").
+Nodes and expressions outside the ported slices raise PlanError naming
+the slice that ports them (joins: 3; windows, extension nodes and
+user-defined functions: 5).
 
 Naming contract: a physical Table's column names are the *qualified* names
 of the producing logical node's DFSchema, so column lookup inside operators
@@ -49,12 +50,15 @@ from ..ops.basic import (
     GlobalLimitExec,
     MemoryExec,
     ProjectionExec,
+    SkipExec,
+    UnionExec,
 )
 from ..ops.sort import PhysSortExpr, SortExec
+from ..types import Field, Schema
 
 
-def _not_ported(what: str) -> PlanError:
-    return PlanError(f"{what} is not ported yet")
+def _not_ported(what: str, slice_no: int) -> PlanError:
+    return PlanError(f"{what} is ported in slice {slice_no}")
 
 
 class PhysicalPlanner:
@@ -104,7 +108,7 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             return self._plan_aggregate(plan)
 
         if isinstance(plan, L.Window):
-            raise _not_ported("Window")
+            raise _not_ported("Window", 5)
 
         if isinstance(plan, L.Sort):
             input_exec = self.create_physical_plan(plan.input)
@@ -117,8 +121,19 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             ]
             return SortExec(specs, input_exec)
 
-        if isinstance(plan, (L.Join, L.CrossJoin, L.Union)):
-            raise _not_ported(type(plan).__name__)
+        if isinstance(plan, (L.Join, L.CrossJoin)):
+            raise _not_ported(type(plan).__name__, 3)
+
+        if isinstance(plan, L.Union):
+            target = Schema(
+                [
+                    Field(f.qualified_name, f.dtype, f.nullable)
+                    for f in plan.schema().fields
+                ]
+            )
+            return UnionExec(
+                [self.create_physical_plan(i) for i in plan.inputs_], target
+            )
 
         if isinstance(plan, L.Distinct):
             input_exec = self.create_physical_plan(plan.input)
@@ -133,7 +148,7 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             return GlobalLimitExec(plan.n, self.create_physical_plan(plan.input))
 
         if isinstance(plan, L.Skip):
-            raise _not_ported("Skip")
+            return SkipExec(plan.n, self.create_physical_plan(plan.input))
 
         if isinstance(plan, L.Repartition):
             # exchange hint: single-device whole-table execution has no
@@ -175,7 +190,7 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             return ExplainExec(plan.schema().to_schema(), rows, self.device)
 
         if isinstance(plan, L.Extension):
-            raise _not_ported(type(plan.node).__name__)
+            raise _not_ported(type(plan.node).__name__, 5)
 
         raise PlanError(f"cannot plan {t.__name__}")
 
@@ -218,7 +233,7 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             )
             udf = getattr(e, "udf", None)
             if udf is not None:
-                raise _not_ported("user-defined aggregate")
+                raise _not_ported("user-defined aggregate", 5)
             aggs.append(PhysAggExpr(e.fun, arg, f.qualified_name, e.distinct, udf))
         return HashAggregateExec("single", group, aggs, input_exec)
 
@@ -272,12 +287,45 @@ def create_physical_expr(e: Expr, schema: DFSchema) -> P.PhysicalExpr:
         if e.negated:
             return P.PhysNot(both)
         return both
+    if isinstance(e, Case):
+        base = create_physical_expr(e.expr, schema) if e.expr is not None else None
+        wt = [
+            (create_physical_expr(w, schema), create_physical_expr(t, schema))
+            for w, t in e.when_then
+        ]
+        els = (
+            create_physical_expr(e.else_expr, schema)
+            if e.else_expr is not None
+            else None
+        )
+        return P.PhysCase(base, wt, els, e.get_type(schema))
     if isinstance(e, Cast):
         return P.PhysCast(create_physical_expr(e.expr, schema), e.dtype, e.safe)
+    if isinstance(e, InList):
+        if any(not isinstance(x, Literal) for x in e.list_):
+            # rewrite as an OR chain
+            from ..types.dtypes import BOOL
+
+            out = None
+            for item in e.list_:
+                cmp = P.PhysBinary(
+                    create_physical_expr(e.expr, schema),
+                    "=",
+                    create_physical_expr(item, schema),
+                    BOOL,
+                )
+                out = cmp if out is None else P.PhysBinary(out, "or", cmp, BOOL)
+            return P.PhysNot(out) if e.negated else out
+        return P.PhysInList(
+            create_physical_expr(e.expr, schema), [x.value for x in e.list_], e.negated
+        )
     from ..logical.expr import ScalarUDFExpr
 
-    if isinstance(e, (Case, InList, ScalarFunction, ScalarUDFExpr)):
-        raise _not_ported(f"{type(e).__name__} expression")
+    if isinstance(e, ScalarUDFExpr):
+        raise _not_ported("user-defined scalar function", 5)
+    if isinstance(e, ScalarFunction):
+        args = [create_physical_expr(a, schema) for a in e.args]
+        return P.PhysScalarFunction(e.name, args, e.get_type(schema))
     if isinstance(e, (ScalarSubquery, InSubquery, Exists)):
         raise PlanError(
             f"subquery expression survived to physical planning: {e!r}; "

@@ -7,13 +7,17 @@ of tensor ops over the stage's buffers, keeping the reference's plan:
   * filters do NOT compact: the predicate folds into a row-validity mask
     carried to the aggregate; compaction happens at most once, where a
     sort or limit needs live rows at the front;
-  * small-domain GROUP BY (dictionary/bool keys, domain <= 256; TPC-H Q1's
-    returnflag x linestatus = 12) gives every row a slot id, and every
-    sum/count/avg over integer or decimal storage comes from ONE pass of
-    the hand-written kernel ``ops/smalldomain.py`` (K1); the other
-    aggregates are masked [domain, N] reductions;
+  * small-domain GROUP BY (dictionary/bool keys, and integer or date keys
+    that a min/max probe of the source finds small; domain <= 256; TPC-H
+    Q1's returnflag x linestatus = 12) gives every row a slot id, and
+    every sum/count/avg over integer or decimal storage comes from ONE
+    pass of the hand-written kernel ``ops/smalldomain.py`` (K1); the
+    other aggregates are masked [domain, N] reductions;
+  * every other GROUP BY sorts the rows by their keys once, derives group
+    ids from the key boundaries and reduces each aggregate per segment
+    (``ops/aggregate.py::_eval_aggregate``); DISTINCT aggregates always
+    take this path;
   * no-group aggregates are plain masked reductions.
-The general sort-based GROUP BY is ported in slice 2.
 """
 
 from __future__ import annotations
@@ -22,11 +26,23 @@ import numpy as np
 import torch
 
 from ..columnar.column import Column
-from ..columnar.table import Table, round_capacity
+from ..columnar.table import Table, host_values, round_capacity
 from ..device import torch_dtype
 from ..errors import InternalError, PlanError
+from ..exprs.physical import descale
 from ..ops import kernels as K
-from ..ops.aggregate import HashAggregateExec, PhysAggExpr
+from ..ops.aggregate import (
+    VARIANCE_FUNS,
+    HashAggregateExec,
+    PhysAggExpr,
+    _eval_aggregate,
+    _finalize_var,
+    _neutral,
+    _segment_first_index,
+    _to_float,
+    signed_zeros,
+    zero_sign_fix,
+)
 from ..ops.base import ExecutionPlan
 from ..ops.basic import FilterExec, GlobalLimitExec, MemoryExec, ProjectionExec, clamp_rows
 from ..ops.smalldomain import MAX_COLS, smalldomain_sum_count
@@ -99,6 +115,71 @@ class CompiledStage:
         self.out_schema = plan.schema()
         # output dictionaries, learned from a dry evaluation on the host
         self.out_dicts = self._infer_dicts(self.source.execute())
+        # integer group keys that can take the small-domain path when a
+        # min/max probe of the source finds a small range: only safe when
+        # the aggregate sees source columns directly
+        self._probe_specs = self._find_probe_specs()
+        self._probe_cache: dict = {}
+
+    def _find_probe_specs(self):
+        """[(group key index, source column index)] of the aggregate's
+        integer and date keys, or None."""
+        from ..exprs.physical import PhysCol
+
+        agg = None
+        below_ops = []
+        for op in self.chain:
+            if isinstance(op, HashAggregateExec):
+                agg = op
+                break
+            below_ops.append(op)
+        if agg is None or not agg.group_expr:
+            return None
+        if any(isinstance(op, ProjectionExec) for op in below_ops):
+            return None
+        specs = []
+        for ki, (e, _) in enumerate(agg.group_expr):
+            if not isinstance(e, PhysCol):
+                continue
+            if e.dtype.is_integer or e.dtype.kind == "date32":
+                specs.append((ki, e.index))
+        return specs or None
+
+    def _probe_int_ranges(self, src: Table):
+        """{key index: (min, range)} when every probed integer key's live
+        source values span at most FUSED_DOMAIN_LIMIT values, else None.
+        One host sync per key on a source's first run; cached per source
+        buffer."""
+        if not self._probe_specs:
+            return None
+        bufs = tuple(src.columns[ci].data for _, ci in self._probe_specs)
+        ckey = tuple(id(b) for b in bufs)
+        cached = self._probe_cache.get(ckey)
+        if cached is not None and all(a is b for a, b in zip(cached[0], bufs)):
+            return cached[1] or None
+        ranges = {}
+        alive = torch.arange(src.capacity, device=src.device) < src.nrows_dev
+        big = torch.iinfo(torch.int64).max
+        for ki, ci in self._probe_specs:
+            c = src.columns[ci]
+            m = c.valid & alive
+            d = c.data.to(torch.int64)
+            mn, mx = host_values(torch.stack([
+                torch.where(m, d, big).amin(), torch.where(m, d, -big).amax()
+            ]))
+            if mn > mx:
+                continue  # all-null key
+            rng = mx - mn + 1
+            if 0 < rng <= FUSED_DOMAIN_LIMIT:
+                ranges[ki] = (mn, rng)
+        # all int keys must be small for the fused path to engage
+        if len(ranges) != len(self._probe_specs):
+            ranges = {}
+        # the cached buffers stay referenced, so their ids cannot be reused
+        self._probe_cache[ckey] = (bufs, ranges)
+        if len(self._probe_cache) > 64:
+            self._probe_cache.clear()
+        return ranges or None
 
     # ------------------------------------------------------------------
     def execute(self, shrink: bool = True, src: Table | None = None) -> Table:
@@ -106,7 +187,9 @@ class CompiledStage:
             src = self.source.execute()
         datas = tuple(c.data for c in src.columns)
         valids = tuple(c.valid for c in src.columns)
-        out_d, out_v, nout = self._run(datas, valids, src.nrows_dev, base=src)
+        out_d, out_v, nout = self._run(
+            datas, valids, src.nrows_dev, base=src, int_ranges=self._probe_int_ranges(src)
+        )
         cols = [
             Column(f.dtype, d, v, dic)
             for f, d, v, dic in zip(self.out_schema.fields, out_d, out_v, self.out_dicts)
@@ -147,7 +230,7 @@ class CompiledStage:
         for op in self.chain:
             if isinstance(op, ProjectionExec):
                 cols = [e.evaluate(t) for e, _ in op.exprs]
-                t = Table([n for _, n in op.exprs], cols, 0)
+                t = Table([n for _, n in op.exprs], cols, 0, device=cpu)
             elif isinstance(op, (FilterExec, SortExec, GlobalLimitExec)):
                 pass  # schema/dictionaries unchanged
             elif isinstance(op, HashAggregateExec):
@@ -166,11 +249,11 @@ class CompiledStage:
                             dic = a.expr.evaluate(t).dictionary
                         names.append(a.name)
                         cols.append(meta_col(a.return_type(), dic))
-                t = Table(names, cols, 0)
+                t = Table(names, cols, 0, device=cpu)
         return t
 
     # ------------------------------------------------------------------
-    def _run(self, datas, valids, nrows, base: Table):
+    def _run(self, datas, valids, nrows, base: Table, int_ranges=None):
         t = self._table_view(datas, valids, base)
         cur_d = list(datas)
         cur_v = list(valids)
@@ -208,7 +291,7 @@ class CompiledStage:
                 t = Table([nm for _, nm in op.exprs], outs, 0, device=dev)
             elif isinstance(op, HashAggregateExec):
                 view = self._table_view(cur_d, cur_v, t)
-                cur_d, cur_v, n, meta = _traced_aggregate(op, view, alive, cap)
+                cur_d, cur_v, n, meta = _traced_aggregate(op, view, alive, cap, int_ranges)
                 cap = cur_d[0].shape[0] if cur_d else 0
                 alive = torch.arange(cap, device=dev) < n
                 compacted = True
@@ -255,17 +338,20 @@ class CompiledStage:
         return tuple(cur_d), tuple(cur_v), n
 
 
-def _small_domain(key_cols, aggr_expr) -> int | None:
+def _small_domain(key_cols, aggr_expr, int_ranges=None) -> int | None:
     """Total direct-index domain if all keys are small dictionary strings
-    or bools."""
+    or bools, or small-range integers whose (min, range) the stage probed
+    (int_ranges: {key index: (min, range)})."""
     if any(a.distinct or a.udf is not None for a in aggr_expr):
         return None  # distinct/UDAF need the sort path
     total = 1
-    for c in key_cols:
+    for i, c in enumerate(key_cols):
         if c.dtype.is_string and c.dictionary is not None:
             total *= max(len(c.dictionary), 1) + 1  # +1 for NULL slot
         elif c.dtype.is_bool:
             total *= 3
+        elif int_ranges is not None and i in int_ranges:
+            total *= int_ranges[i][1] + 1
         else:
             return None
         if total > FUSED_DOMAIN_LIMIT:
@@ -288,7 +374,7 @@ def _agg_out_meta(op: HashAggregateExec, key_cols, emit_state):
     return meta
 
 
-def _traced_aggregate(op: HashAggregateExec, t: Table, alive, cap):
+def _traced_aggregate(op: HashAggregateExec, t: Table, alive, cap, int_ranges=None):
     key_cols = [e.evaluate(t) for e, _ in op.group_expr]
     emit_state = op.mode == "partial"
 
@@ -302,14 +388,48 @@ def _traced_aggregate(op: HashAggregateExec, t: Table, alive, cap):
                 out_v.append(valid)
         return out_d, out_v, 1, _agg_out_meta(op, [], emit_state)
 
-    domain = _small_domain(key_cols, op.aggr_expr)
+    domain = _small_domain(key_cols, op.aggr_expr, int_ranges)
     if domain is not None:
-        return _fused_small_domain_aggregate(op, t, key_cols, domain, alive, cap, emit_state)
+        return _fused_small_domain_aggregate(
+            op, t, key_cols, domain, alive, cap, emit_state, int_ranges
+        )
+    return _sorted_aggregate(op, t, key_cols, alive, cap, emit_state)
 
-    raise NotImplementedError(
-        "GROUP BY outside the small dictionary/bool domain (the sort-based "
-        "aggregate) is ported in slice 2"
+
+def _sorted_aggregate(op, t, key_cols, alive, cap, emit_state):
+    """The general GROUP BY: one stable sort of the rows by their group
+    keys, dead rows (the filter mask included) last; group ids from the
+    key boundaries; one segment reduction per aggregate state.  The
+    reference carries every column through its sort as a payload; here
+    the sort yields a permutation, and only the keys and the aggregates'
+    inputs are gathered by it."""
+    dev = alive.device
+    n = alive.sum()
+    ordkeys = tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in key_cols)
+    kvalids = tuple(c.valid & alive for c in key_cols)
+    nk = len(key_cols)
+    perm = K.lexsort_perm(ordkeys, kvalids, n, (False,) * nk, (True,) * nk, dead_mask=~alive)
+    gid, ngroups = K.group_ids_sorted(
+        tuple(k[perm] for k in ordkeys), tuple(v[perm] for v in kvalids), n
     )
+    alive_sorted = torch.arange(cap, device=dev) < n
+    gvalid_rows = torch.arange(cap, device=dev) < ngroups
+    # each group's keys from its first row in sorted order
+    first = perm[_segment_first_index(gid, cap, alive_sorted)]
+    kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, first)
+    out_d = list(kd)
+    out_v = [v & gvalid_rows for v in kv]
+    agg_dicts = {}
+    for a in op.aggr_expr:
+        cols = _eval_aggregate(a, t, perm, gid, cap, alive_sorted, ngroups, emit_state)
+        if a.fun in ("min", "max") and a.expr is not None and not emit_state:
+            agg_dicts[a.name] = cols[0].dictionary
+        for c in cols:
+            out_d.append(c.data)
+            out_v.append(c.valid)
+    meta = _agg_out_meta(op, key_cols, emit_state)
+    meta = [(nm, dt, agg_dicts.get(nm, dic)) for nm, dt, dic in meta]
+    return out_d, out_v, ngroups, meta
 
 
 # ---------------------------------------------------------------------------
@@ -317,22 +437,28 @@ def _traced_aggregate(op: HashAggregateExec, t: Table, alive, cap):
 # ---------------------------------------------------------------------------
 
 
-def _fused_small_domain_aggregate(op, t, key_cols, domain, alive, cap, emit_state):
+def _fused_small_domain_aggregate(
+    op, t, key_cols, domain, alive, cap, emit_state, int_ranges=None
+):
     dev = alive.device
     # slot id per row: sum(code_i * stride_i); codes are sorted dictionary
-    # indices, so arithmetic order == group sort order.  Dead rows get slot
-    # `domain` (outside every slot).
+    # indices or offset integers, so arithmetic order == group sort order.
+    # Code 0 is NULL; dead rows get slot `domain` (outside every slot).
     gid = torch.zeros(cap, dtype=torch.int32, device=dev)
     stride = 1
-    radix = []  # (stride, base) per key
-    for c in reversed(key_cols):
-        if c.dtype.is_string:
-            base = max(len(c.dictionary), 1) + 1
-        else:  # bool
-            base = 3
-        code = torch.where(c.valid, c.data.to(torch.int32) + 1, torch.zeros_like(gid))
-        gid = gid + code * stride
-        radix.insert(0, (stride, base))
+    radix = []  # (stride, base, an integer key's minimum or None) per key
+    for i in reversed(range(len(key_cols))):
+        c = key_cols[i]
+        if c.dtype.is_string or c.dtype.is_bool:
+            base = max(len(c.dictionary), 1) + 1 if c.dtype.is_string else 3
+            mn = None
+            code = c.data.to(torch.int32) + 1
+        else:  # probed small-range integer
+            mn, rng = int_ranges[i]
+            base = rng + 1
+            code = torch.clamp(c.data.to(torch.int64) - mn, 0, rng - 1).to(torch.int32) + 1
+        gid = gid + torch.where(c.valid, code, 0) * stride
+        radix.insert(0, (stride, base, mn))
         stride *= base
     gid = torch.where(alive, gid, torch.full_like(gid, domain)).contiguous()
 
@@ -359,13 +485,15 @@ def _fused_small_domain_aggregate(op, t, key_cols, domain, alive, cap, emit_stat
     out_cap = min(cap, round_capacity(domain))
     gvalid_row = torch.arange(out_cap, device=dev) < ngroups
     out_d, out_v = [], []
-    # each group's key values, decoded from its slot id (code 0: NULL).
+    # each group's key values, decoded from its slot id (code 0: NULL; an
+    # integer key's value is its minimum + code - 1).
     # The reference gathers them from each slot's first row instead; on an
     # H100 that min-index scatter onto a dozen hot slots took ~40 % of
     # TPC-H Q1's time
-    for c, (st, base) in zip(key_cols, radix):
+    for c, (st, base, mn) in zip(key_cols, radix):
         code = torch.div(slot_of_group, st, rounding_mode="floor") % base
-        out_d.append(_pad_to((code - 1).clamp(min=0), out_cap, c.data.dtype))
+        val = code - 1 if mn is None else code - 1 + mn
+        out_d.append(_pad_to(torch.where(code > 0, val, 0), out_cap, c.data.dtype))
         out_v.append(_pad_to(code > 0, out_cap, torch.bool) & gvalid_row)
 
     hit = None
@@ -378,7 +506,7 @@ def _fused_small_domain_aggregate(op, t, key_cols, domain, alive, cap, emit_stat
             slots_out = _eval_aggregate_slots(a, t, hit, emit_state)
         for data, valid in slots_out:
             # reorder [D] slot values into compacted group order, pad out
-            out_d.append(_pad_to(data[slot_of_group], out_cap, data.dtype))
+            out_d.append(_pad_to(K.gather(data, slot_of_group), out_cap, data.dtype))
             out_v.append(_pad_to(valid[slot_of_group], out_cap, torch.bool) & gvalid_row)
     meta = _agg_out_meta(op, key_cols, emit_state)
     if not emit_state:
@@ -446,8 +574,8 @@ def _slots_from_kernel(a, s_i64, cnt, kind, scale, emit_state):
         if emit_state:
             return [(s_i64, has), (cnt64, ones)]
         return [(s_i64, has)]
-    # avg: float state/result, descaled for decimals (same as _slot_float)
-    sf = _descale(s_i64.to(torch.float64), scale)
+    # avg: float state/result, descaled for decimals (same as _to_float)
+    sf = descale(s_i64.to(torch.float64), scale)
     if emit_state:
         return [(sf, ones), (cnt64, ones)]
     return [(sf / torch.clamp(cnt64, min=1), has)]
@@ -471,37 +599,35 @@ def _eval_aggregate_slots(a: PhysAggExpr, t: Table, hit, emit_state):
         return [(cnt, ones)]
 
     if f == "sum":
-        acc = v.data.to(torch_dtype(a.return_type().storage_np_dtype()))
-        s = torch.where(vv, acc[None, :], torch.zeros((), dtype=acc.dtype, device=acc.device)).sum(dim=1)
+        dt = torch_dtype(a.return_type().storage_np_dtype())
+        acc = K.signed_view(v.data.to(dt))
+        zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
+        s = torch.where(vv, acc[None, :], zero).sum(dim=1).view(dt)
         if emit_state:
             return [(s, has), (cnt, ones)]
         return [(s, has)]
 
     if f in ("min", "max"):
         t_in = v.dtype
-        if t_in.is_float:
-            ordk = v.data
-            neutral = torch.tensor(float("inf") if f == "min" else float("-inf"), dtype=ordk.dtype, device=ordk.device)
-        else:
-            ordk = K.orderable_key(v.data, t_in)
-            info = torch.iinfo(ordk.dtype)
-            neutral = torch.tensor(info.max if f == "min" else info.min, dtype=ordk.dtype, device=ordk.device)
-        vals = torch.where(vv, ordk[None, :], neutral)
+        ordk = v.data if t_in.is_float else K.orderable_key(v.data, t_in)
+        vals = torch.where(vv, ordk[None, :], _neutral(ordk, f))
         red = vals.amin(dim=1) if f == "min" else vals.amax(dim=1)
+        if t_in.is_float:
+            red = zero_sign_fix(red, f, (hit & signed_zeros(v.data, v.valid, f)[None, :]).any(dim=1))
         out = red.to(torch_dtype(t_in.storage_np_dtype()))
         if emit_state:
             return [(out, has), (cnt, ones)]
         return [(out, has)]
 
     if f == "avg":
-        fd = _slot_float(v)
+        fd = _to_float(v.data, v.dtype)
         s = torch.where(vv, fd[None, :], 0.0).sum(dim=1)
         if emit_state:
             return [(s, torch.ones_like(has)), (cnt, ones)]
         return [(s / torch.clamp(cnt, min=1), has)]
 
-    if f in ("variance", "var", "var_samp", "var_pop", "stddev", "stddev_samp", "stddev_pop"):
-        fd = _slot_float(v)
+    if f in VARIANCE_FUNS:
+        fd = _to_float(v.data, v.dtype)
         s = torch.where(vv, fd[None, :], 0.0).sum(dim=1)
         ss = torch.where(vv, (fd * fd)[None, :], 0.0).sum(dim=1)
         if emit_state:
@@ -511,14 +637,13 @@ def _eval_aggregate_slots(a: PhysAggExpr, t: Table, hit, emit_state):
     raise PlanError(f"aggregate '{f}' not implemented in fused path")
 
 
-def _finalize_var(f, cnt, s, ss):
-    nf = cnt.to(torch.float64)
-    mean = s / torch.clamp(nf, min=1.0)
-    m2 = torch.clamp(ss - nf * mean * mean, min=0.0)
-    pop = f.endswith("_pop")
-    var = m2 / torch.clamp(nf if pop else nf - 1.0, min=1.0)
-    out = torch.sqrt(var) if f.startswith("stddev") else var
-    return out, cnt >= (1 if pop else 2)
+def _one(x: torch.Tensor, valid_scalar, dtype, out_cap):
+    """One output row (padded to out_cap) as a (data, valid) pair."""
+    data = torch.zeros(out_cap, dtype=dtype, device=x.device)
+    data[0] = x.to(dtype)
+    valid = torch.zeros(out_cap, dtype=torch.bool, device=x.device)
+    valid[0] = valid_scalar
+    return data, valid
 
 
 def _eval_aggregate_nogroup(a: PhysAggExpr, t: Table, alive, out_cap, emit_state):
@@ -528,14 +653,10 @@ def _eval_aggregate_nogroup(a: PhysAggExpr, t: Table, alive, out_cap, emit_state
     dev = alive.device
 
     def one(x, valid_scalar, dtype):
-        data = torch.zeros(out_cap, dtype=dtype, device=dev)
-        data[0] = x.to(dtype) if isinstance(x, torch.Tensor) else x
-        valid = torch.zeros(out_cap, dtype=torch.bool, device=dev)
-        valid[0] = valid_scalar
-        return data, valid
+        return _one(x, valid_scalar, dtype, out_cap)
 
     if a.distinct:
-        raise NotImplementedError("DISTINCT aggregates are ported in slice 2")
+        return _eval_aggregate_nogroup_distinct(a, t, alive, out_cap, emit_state)
     if a.udf is not None:
         raise NotImplementedError("user-defined aggregates are ported in slice 5")
 
@@ -551,32 +672,29 @@ def _eval_aggregate_nogroup(a: PhysAggExpr, t: Table, alive, out_cap, emit_state
         return [one(cnt, True, torch.int64)]
     if f == "sum":
         dt = torch_dtype(a.return_type().storage_np_dtype())
-        s = torch.where(m, v.data.to(dt), torch.zeros((), dtype=dt, device=dev)).sum()
+        acc = K.signed_view(v.data.to(dt))
+        s = torch.where(m, acc, torch.zeros((), dtype=acc.dtype, device=dev)).sum().view(dt)
         if emit_state:
             return [one(s, has, dt), one(cnt, True, torch.int64)]
         return [one(s, has, dt)]
     if f in ("min", "max"):
         t_in = v.dtype
         dt = torch_dtype(t_in.storage_np_dtype())
-        if t_in.is_float:
-            ordk = v.data
-            neutral = torch.tensor(float("inf") if f == "min" else float("-inf"), dtype=ordk.dtype, device=dev)
-        else:
-            ordk = K.orderable_key(v.data, t_in)
-            info = torch.iinfo(ordk.dtype)
-            neutral = torch.tensor(info.max if f == "min" else info.min, dtype=ordk.dtype, device=dev)
-        vals = torch.where(m, ordk, neutral)
+        ordk = v.data if t_in.is_float else K.orderable_key(v.data, t_in)
+        vals = torch.where(m, ordk, _neutral(ordk, f))
         red = vals.amin() if f == "min" else vals.amax()
+        if t_in.is_float:
+            red = zero_sign_fix(red, f, signed_zeros(v.data, m, f).any())
         if emit_state:
             return [one(red, has, dt), one(cnt, True, torch.int64)]
         return [one(red, has, dt)]
     if f == "avg":
-        s = torch.where(m, _slot_float(v), 0.0).sum()
+        s = torch.where(m, _to_float(v.data, v.dtype), 0.0).sum()
         if emit_state:
             return [one(s, True, torch.float64), one(cnt, True, torch.int64)]
         return [one(s / torch.clamp(cnt, min=1), has, torch.float64)]
-    if f in ("variance", "var", "var_samp", "var_pop", "stddev", "stddev_samp", "stddev_pop"):
-        fd = _slot_float(v)
+    if f in VARIANCE_FUNS:
+        fd = _to_float(v.data, v.dtype)
         s = torch.where(m, fd, 0.0).sum()
         ss = torch.where(m, fd * fd, 0.0).sum()
         if emit_state:
@@ -590,18 +708,36 @@ def _eval_aggregate_nogroup(a: PhysAggExpr, t: Table, alive, out_cap, emit_state
     raise PlanError(f"aggregate '{f}' not implemented in fused path")
 
 
-def _descale(x: torch.Tensor, scale: int) -> torch.Tensor:
-    """x / 10**scale as the reference's compiled stage computes it: XLA
-    rewrites a division by a constant into a multiplication by its float64
-    reciprocal, and the port does the same so both engines give the same
-    bits."""
-    return x * (1.0 / 10**scale) if scale else x
-
-
-def _slot_float(v):
-    if v.dtype.is_decimal:
-        return _descale(v.data.to(torch.float64), v.dtype.scale)
-    return v.data.to(torch.float64)
+def _eval_aggregate_nogroup_distinct(a, t, alive, out_cap, emit_state):
+    """COUNT/SUM/AVG(DISTINCT x) without groups: sort the values, count
+    each run of equal values once."""
+    v = a.expr.evaluate(t)
+    dev = alive.device
+    cap = alive.shape[0]  # the sort runs over the input rows
+    ordk = K.orderable_key(v.data, v.dtype)
+    m = alive & v.valid
+    sk = torch.sort(K.sort_key(torch.where(m, ordk, _neutral(ordk, "min")))).values  # nulls last
+    ar = torch.arange(cap, device=dev)
+    firsts = (ar < m.sum()) & ((ar == 0) | (sk != torch.roll(sk, 1)))
+    cnt = firsts.sum()
+    f = a.fun
+    if f == "count":
+        return [_one(cnt, True, torch.int64, out_cap)]
+    if f in ("sum", "avg"):
+        vals = torch.where(firsts, sk, torch.zeros((), dtype=sk.dtype, device=dev))
+        if f == "avg":
+            s = vals.to(torch.float64).sum()
+            if v.dtype.is_decimal:  # the orderable key is the scaled int
+                s = descale(s, v.dtype.scale)
+            return [_one(s / torch.clamp(cnt, min=1), cnt > 0, torch.float64, out_cap)]
+        # accumulate at the RETURN width (keys may ride narrowed int32)
+        dt = torch_dtype(a.return_type().storage_np_dtype())
+        return [_one(K.signed_view(vals.to(dt)).sum(), cnt > 0, dt, out_cap)]
+    if f in ("min", "max"):
+        return _eval_aggregate_nogroup(
+            PhysAggExpr(f, a.expr, a.name, False), t, alive, out_cap, emit_state
+        )
+    raise PlanError(f"DISTINCT {f} not supported")
 
 
 def _pad_to(x, cap, dtype):

@@ -13,7 +13,7 @@ from datafusion_tpu_torch.columnar.convert import dtype_from_kind, table_from_ho
 from datafusion_tpu_torch.columnar.table import Table, round_capacity
 from datafusion_tpu_torch.device import resolve_device
 from datafusion_tpu_torch.errors import ExecutionError
-from datafusion_tpu_torch.types import dtypes as P
+from datafusion_tpu_torch.types import Schema, dtypes as P
 
 from torch_parity import jax_table_to_host, kind_of, port_table
 
@@ -113,3 +113,23 @@ def test_default_device_is_cuda():
             resolve_device(None)
         with pytest.raises(ExecutionError):
             Table.from_pydict({"a": [1]})
+
+
+def test_columnless_table_takes_the_given_device():
+    """A Table with no columns lands where it is told; ``device=None`` means
+    the card there too, so on a host without one it raises instead of
+    landing on the CPU."""
+    assert Table([], [], 0, device="cpu").device.type == "cpu"
+    assert Table.empty(Schema([]), device="cpu").device.type == "cpu"
+    if torch.cuda.is_available():
+        assert Table([], [], 0).device.type == "cuda"
+    else:
+        with pytest.raises(ExecutionError):
+            Table([], [], 0)
+    # the engine passes its device to every column-less table it builds
+    from datafusion_tpu_torch import ExecutionContext
+
+    ctx = ExecutionContext(device="cpu")
+    assert ctx.sql("SELECT 1 + 1 AS x").collect().to_pydict() == {"x": [2]}
+    ctx.register_table("t", Table.from_pydict({"a": [1, 2, 3]}, device="cpu"))
+    assert ctx.sql("SELECT count(*) AS c FROM t").collect().to_pydict() == {"c": [3]}

@@ -8,8 +8,9 @@ without JAX (tests/conftest.py imports it):
 They check kernel K1 against its plain PyTorch version at TPC-H Q1's
 shapes and at edge cases (exact equality), among them every case of
 ``K1_CASES`` (``datafusion_tpu_torch/ops/smalldomain_cases.py``, which
-``chip_smoke.py`` runs too); Q1 on the card against Q1 on the CPU; and
-that Q1 on the card launched K1.
+``chip_smoke.py`` runs too); Q1 and the lineitem-only queries on the card
+against the same queries on the CPU; and that on the card Q1 and the
+small-domain GROUP BY launched K1, and the sort-path queries did not.
 """
 
 import numpy as np
@@ -19,8 +20,8 @@ import torch
 from datafusion_tpu_torch import ExecutionContext
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
-from datafusion_tpu_torch.q1data import generate_lineitem_q1
-from datafusion_tpu_torch.queries import get_query_sql
+from datafusion_tpu_torch.q1data import generate_lineitem, generate_lineitem_q1
+from datafusion_tpu_torch.queries import NAMED_QUERIES, get_named_query, get_query_sql
 
 
 @pytest.fixture
@@ -110,3 +111,104 @@ def test_q1_on_card_matches_cpu_and_launches_k1(cuda):
     got = gpu.sql(sql).collect().to_pydict()
     assert SD.smalldomain_sum_count.launches > 0
     assert got == cpu.sql(sql).collect().to_pydict()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name", NAMED_QUERIES)
+def test_named_queries_on_card_match_cpu(cuda, name):
+    """SF 0.1: l_suppkey spans 1,000 values, so only `linenumber` takes the
+    small-domain path.  Keys, counts and sums equal the CPU's; floats
+    (avg_price) within rel 1e-12."""
+    sql = get_named_query(name)
+    cpu = ExecutionContext(device="cpu")
+    cpu.register_table("lineitem", generate_lineitem(0.1, device="cpu"))
+    gpu = ExecutionContext()
+    gpu.register_table("lineitem", generate_lineitem(0.1))
+    SD.smalldomain_sum_count.launches = 0
+    got = gpu.sql(sql).collect().to_pydict()
+    assert (SD.smalldomain_sum_count.launches > 0) == (name == "linenumber")
+    want = cpu.sql(sql).collect().to_pydict()
+    assert list(got) == list(want)
+    for k in want:
+        if k == "avg_price":
+            assert np.allclose(got[k], want[k], rtol=1e-12, atol=0)
+        else:
+            assert got[k] == want[k], k
+
+
+def _mixed_table(device):
+    """Every key and aggregate storage type the slice handles, NULLs, NaN
+    and +-0.0 (made from a seed, the same on both devices)."""
+    from datafusion_tpu_torch import Table
+    from datafusion_tpu_torch.types.dtypes import DATE32, decimal
+
+    rng = np.random.default_rng(5)
+    n = 5000
+
+    def nulls(col, p=0.1):
+        return [None if z else v for z, v in zip(rng.random(n) < p, col)]
+
+    day0 = np.datetime64("1995-01-01")
+    data = {
+        "s": nulls(list(rng.choice(["apple", "Banana", "cherry-pie", "date"], n))),
+        "i": nulls([int(v) for v in rng.integers(-50, 50, n)]),
+        "big": nulls([int(v) for v in rng.integers(0, 100_000, n)]),
+        "u": rng.integers(0, 2**63, n, dtype=np.uint64) + np.uint64(2**62),
+        "i8": rng.integers(-100, 100, n).astype(np.int8),
+        "f32": rng.choice([0.5, -0.0, 0.0, 2.25], n).astype(np.float32),
+        "f": nulls([float(v) for v in rng.choice([0.0, -0.0, 1.5, 2.25, -3.0], n)]),
+        "d": nulls([float(v) for v in rng.integers(-10**5, 10**5, n) / 100]),
+        "dt": nulls([day0 + int(v) for v in rng.integers(0, 2000, n)]),
+        "w": [int(v) for v in rng.choice([2**62, -(2**62), 2**62 - 1], n)],
+    }
+    return Table.from_pydict(data, dtypes={"d": decimal(12, 2), "dt": DATE32}, device=device)
+
+
+MIXED_ON_CARD = [
+    "SELECT i, count(*) c, sum(d) sd, avg(d) ad, min(s) ms, max(dt) xd, sum(w) sw, stddev(i) si "
+    "FROM t GROUP BY i ORDER BY i",
+    "SELECT big, count(*) c, sum(w) sw, min(s) ms, avg(f) af FROM t GROUP BY big ORDER BY big",
+    "SELECT u, count(*) c, sum(u) su, min(u) mu, max(i8) m8 FROM t GROUP BY u ORDER BY u LIMIT 50",
+    "SELECT u - 1 AS a, u * 3 AS b, u < u + 1 AS c, u = u AS d, CASE WHEN i > 0 THEN u END AS e "
+    "FROM t WHERE u > 5 ORDER BY u DESC LIMIT 40",
+    "SELECT i8, f32, count(*) c, sum(i8) s8, min(f32) mf FROM t GROUP BY i8, f32 ORDER BY i8, f32",
+    "SELECT g, count(*) c FROM (SELECT CASE WHEN f = 1.5 THEN (f - f) / (f - f) ELSE f END AS g "
+    "FROM t) x GROUP BY g",
+    "SELECT s, count(DISTINCT i) ci, sum(DISTINCT big) sb, avg(DISTINCT d) ad FROM t GROUP BY s ORDER BY s",
+    "SELECT count(DISTINCT i) ci, sum(DISTINCT u) su, count(DISTINCT s) cs, sum(w) sw FROM t",
+    "SELECT i, s FROM t ORDER BY i, s NULLS FIRST LIMIT 10 OFFSET 5",
+    "SELECT s, count(*) c FROM (SELECT s FROM t WHERE i < 0 UNION ALL SELECT s FROM t "
+    "WHERE big < 500) u GROUP BY s ORDER BY s",
+    "SELECT CASE WHEN i > 5 THEN 'big' WHEN i < 0 THEN 'neg' END a, CASE WHEN f > 0 THEN d ELSE 0 END e, "
+    "i IN (1, 2, 3) h, s IN ('date', 'nope') l, i NOT IN (1, NULL) q, CAST(i AS VARCHAR) ci, "
+    "CAST(d AS VARCHAR) cd, dt + INTERVAL '13' MONTH m, extract(year from dt) y, "
+    "date_trunc('quarter', dt) tq FROM t",
+    "SELECT sqrt(big) q, sin(d) a, round(f) r, floor(d) fd, abs(i) ai, power(d, 2) p, upper(s) us, "
+    "substr(s, 2, 3) ss, concat(s, '-', i) c, lpad(s, i, '*') lp, md5(s) m, coalesce(i, big) co, "
+    "to_hex(big) h FROM t WHERE i >= 0",
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", MIXED_ON_CARD, ids=[f"q{i}" for i in range(len(MIXED_ON_CARD))])
+def test_mixed_queries_on_card_match_cpu(cuda, sql):
+    """Every device code path of the slice on the card: rows equal the
+    CPU's; floats within rel 1e-12 (the card's math library and
+    summation order), NaN equal to NaN, -0.0 told from 0.0 (the +-0.0
+    group reports its first row's key, and the card's radix sort must not
+    order -0.0 first, nor a NaN by its sign)."""
+    cpu = ExecutionContext(device="cpu")
+    cpu.register_table("t", _mixed_table("cpu"))
+    gpu = ExecutionContext()
+    gpu.register_table("t", _mixed_table(None))
+    got = gpu.sql(sql).collect().to_pydict()
+    want = cpu.sql(sql).collect().to_pydict()
+    assert list(got) == list(want)
+    for k in want:
+        assert len(got[k]) == len(want[k]), k
+        for x, y in zip(got[k], want[k]):
+            if isinstance(y, float) and x is not None:
+                assert (x != x and y != y) or abs(x - y) <= 1e-12 * max(abs(y), 1.0), (k, x, y)
+                assert y != 0.0 or str(x) == str(y), (k, x, y)  # -0.0 told from 0.0
+            else:
+                assert x == y, (k, x, y)
