@@ -11,6 +11,7 @@ order (XLA's associative scan tree vs the port's Hillis-Steele passes).
 Float minima and maxima are exact.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -22,6 +23,12 @@ from datafusion_tpu_torch.ops import kernels as K
 from datafusion_tpu_torch.types import dtypes as T
 
 REL = 1e-12
+
+# the JAX package's segment reductions, compiled once per dtype and shape
+# (run eagerly, their scans compile op by op, several seconds per dtype)
+J_SUM, J_MIN, J_MAX = (
+    jax.jit(f, static_argnums=2) for f in (JK.segment_sum, JK.segment_min, JK.segment_max)
+)
 
 
 @pytest.fixture(params=[0, 1, 2])
@@ -102,8 +109,8 @@ def test_segment_sum_int_and_float_match_jax(rng):
     floats = rng.random(cap) * 1e3 - 500
     si = _np(K.segment_sum(_t(ints), _t(gid), cap))
     sf = _np(K.segment_sum(_t(floats), _t(gid), cap))
-    wi = _np(JK.segment_sum(jnp.asarray(ints), jnp.asarray(gid), cap))
-    wf = _np(JK.segment_sum(jnp.asarray(floats), jnp.asarray(gid), cap))
+    wi = _np(J_SUM(jnp.asarray(ints), jnp.asarray(gid), cap))
+    wf = _np(J_SUM(jnp.asarray(floats), jnp.asarray(gid), cap))
     nseg = gid[n - 1] + 1
     assert np.array_equal(si[:nseg], wi[:nseg])
     assert np.allclose(sf[:nseg], wf[:nseg], rtol=REL, atol=0)
@@ -120,7 +127,7 @@ def test_segment_sum_wraps_like_jax(rng, grouped):
     gid = _sorted_gid(rng, cap, n, 5) if grouped else np.where(np.arange(cap) < n, 0, cap - 1)
     vals = rng.choice([2**62, -(2**62), 2**62 - 1, 3 * 2**61], cap).astype(np.int64)
     got = _np(K.segment_sum(_t(vals), _t(gid), cap))
-    want = _np(JK.segment_sum(jnp.asarray(vals), jnp.asarray(gid), cap))
+    want = _np(J_SUM(jnp.asarray(vals), jnp.asarray(gid), cap))
     nseg = gid[n - 1] + 1
     assert np.array_equal(got[:nseg], want[:nseg])
     with np.errstate(over="ignore"):
@@ -131,7 +138,7 @@ def test_segment_min_max_match_jax(rng):
     cap, n = 4096, 3900
     gid = _sorted_gid(rng, cap, n, 60)
     for vals in (rng.integers(-(10**15), 10**15, cap), rng.normal(size=cap)):
-        for ours, theirs in ((K.segment_min, JK.segment_min), (K.segment_max, JK.segment_max)):
+        for ours, theirs in ((K.segment_min, J_MIN), (K.segment_max, J_MAX)):
             got = _np(ours(_t(vals), _t(gid), cap))
             want = _np(theirs(jnp.asarray(vals), jnp.asarray(gid), cap))
             nseg = gid[n - 1] + 1
@@ -208,8 +215,8 @@ def test_grouping_primitives_per_storage_dtype_match_jax(kind):
     if storage != np.bool_:
         sums = _t(data[perm]).to(torch.float64 if storage.kind == "f" else torch.int64)
         got = _np(K.segment_sum(sums, gid, cap))[:nseg]
-        want = _np(JK.segment_sum(jnp.asarray(_np(sums)), jgid, cap))[:nseg]
+        want = _np(J_SUM(jnp.asarray(_np(sums)), jgid, cap))[:nseg]
         assert np.array_equal(got, want)
-    for ours, theirs in ((K.segment_min, JK.segment_min), (K.segment_max, JK.segment_max)):
+    for ours, theirs in ((K.segment_min, J_MIN), (K.segment_max, J_MAX)):
         got = _np(ours(tk[perm], gid, cap))[:nseg]
         assert np.array_equal(got, _np(theirs(jk[perm], jgid, cap))[:nseg])
