@@ -257,3 +257,29 @@ def test_lineitem_queries_match_jax(lineitem, monkeypatch, name):
         assert psmall  # small integer ranges at this scale
     if name in ("q18_bigorders", "distinct_supp", "exprs", "q6"):
         assert not psmall
+
+
+EDGE_TABLES = {
+    "empty": {"k": np.zeros(0, np.int64), "v": np.zeros(0, np.int64), "s": np.array([], dtype=object)},
+    "one-row": {"k": [5], "v": [7], "s": ["a"]},
+    "null-keys": {"k": [None, None, None], "v": [1, 2, 3], "s": [None, "b", None]},
+    "wide-keys": {"k": [0, 10**12, -(10**12), 0], "v": [1, 2, 3, 4], "s": ["x", "y", "x", "y"]},
+}
+EDGE_QUERIES = [
+    "SELECT k, count(*) c, sum(v) s, min(s) ms FROM t GROUP BY k ORDER BY k",
+    "SELECT s, k, count(DISTINCT v) c FROM t WHERE v < 100 GROUP BY s, k ORDER BY s, k",
+    "SELECT k, sum(v) s FROM t GROUP BY k HAVING sum(v) > 100",
+    "SELECT count(DISTINCT k) c, sum(DISTINCT v) s FROM t",
+    "SELECT k FROM t WHERE v > 1 UNION ALL SELECT k FROM t ORDER BY k LIMIT 5 OFFSET 1",
+]
+
+
+@pytest.mark.parametrize("sql", EDGE_QUERIES, ids=[f"e{i}" for i in range(len(EDGE_QUERIES))])
+@pytest.mark.parametrize("table", list(EDGE_TABLES))
+def test_edge_tables_match_jax(monkeypatch, table, sql):
+    """Empty tables, one row, all-NULL keys (the probe finds no range) and
+    keys too wide to probe small."""
+    jt = JTable.from_pydict(EDGE_TABLES[table])
+    got, want, jsmall, psmall, _ = run_both(jt, port_table(jt), sql, monkeypatch)
+    assert_rows_equal(got, want)
+    assert jsmall == psmall
