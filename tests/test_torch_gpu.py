@@ -212,3 +212,29 @@ def test_mixed_queries_on_card_match_cpu(cuda, sql):
                 assert y != 0.0 or str(x) == str(y), (k, x, y)  # -0.0 told from 0.0
             else:
                 assert x == y, (k, x, y)
+
+
+EDGE_TABLES = {
+    "empty": {"k": np.zeros(0, np.int64), "v": np.zeros(0, np.int64), "s": np.array([], dtype=object)},
+    "one-row": {"k": [5], "v": [7], "s": ["a"]},
+    "null-keys": {"k": [None, None, None], "v": [1, 2, 3], "s": [None, "b", None]},
+}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("table", list(EDGE_TABLES))
+def test_edge_tables_on_card_match_cpu(cuda, table):
+    from datafusion_tpu_torch import Table
+
+    sqls = [
+        "SELECT k, count(*) c, sum(v) s, min(s) ms FROM t GROUP BY k ORDER BY k",
+        "SELECT s, k, count(DISTINCT v) c FROM t WHERE v < 100 GROUP BY s, k ORDER BY s, k",
+        "SELECT count(DISTINCT k) c, sum(DISTINCT v) s, sum(v) t FROM t",
+        "SELECT k FROM t WHERE v > 1 UNION ALL SELECT k FROM t ORDER BY k LIMIT 5 OFFSET 1",
+    ]
+    cpu = ExecutionContext(device="cpu")
+    cpu.register_table("t", Table.from_pydict(EDGE_TABLES[table], device="cpu"))
+    gpu = ExecutionContext()
+    gpu.register_table("t", Table.from_pydict(EDGE_TABLES[table]))
+    for sql in sqls:
+        assert gpu.sql(sql).collect().to_pydict() == cpu.sql(sql).collect().to_pydict(), sql
