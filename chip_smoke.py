@@ -26,7 +26,8 @@ Phases (each raises, and the script exits non-zero, on failure):
                checked against a numpy oracle (keys, counts and decimal
                sums exact, floats rel 1e-12) and its path asserted from
                K1's launch count (only `linenumber` takes the small-domain
-               path); per query, printed: warm medians of 5 runs, five
+               path); K1 against its plain version, exact, at the inputs
+               each query's run handed it; per query, printed: warm medians of 5 runs, five
                times over, kernel time and device idle share of one
                profiled run, host syncs per run and peak device memory;
                the top device ops of q18_bigorders
@@ -216,16 +217,20 @@ def check_q1(got: dict, want: dict) -> None:
 
 
 class Recorder:
-    """Keeps the arguments of the main path's first K1 call, so that the
-    timing phase runs the kernel on exactly those tensors."""
+    """Keeps the arguments of every K1 call a path makes, so that the
+    kernel is held against its plain version, and timed, on exactly those
+    tensors; ``args`` are the first call's."""
 
     def __init__(self, fn):
         self.fn = fn
-        self.args = None
+        self.calls = []
+
+    @property
+    def args(self):
+        return self.calls[0] if self.calls else None
 
     def __call__(self, gid, cols, masks, domain):
-        if self.args is None:
-            self.args = (gid, list(cols), list(masks), domain)
+        self.calls.append((gid, list(cols), list(masks), domain))
         return self.fn(gid, cols, masks, domain)
 
 
@@ -489,9 +494,11 @@ def check_rows(name: str, got: dict, want: dict, float_cols=()) -> None:
 SQL_K1_QUERIES = {"linenumber"}
 
 
-def phase_sql(name_power: str) -> dict:
-    """The named queries on the card at SF1: oracle, path, timing, profile,
-    host syncs and peak memory; returns K1's launches per query."""
+def phase_sql(name_power: str):
+    """The named queries on the card at SF1: oracle, path, K1 against its
+    plain version at the inputs each query hands it, timing, profile, host
+    syncs and peak memory; returns K1's launches per query, its max abs
+    error there and the names of the inputs it was checked at."""
     t0 = time.perf_counter()
     arrays = lineitem_arrays(SF, SEED)
     want = sql_oracles(arrays)
@@ -504,19 +511,30 @@ def phase_sql(name_power: str) -> dict:
         f"{table.capacity}, {table_mb:.1f} MiB on the card; oracles and set-up "
         f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
         f"allocated in all")
-    launches = {}
+    launches, err, checked = {}, 0, []
     for name in NAMED_QUERIES:
         sql = get_named_query(name)
-        SD.smalldomain_sum_count.launches = 0
-        t0 = time.perf_counter()
-        got = ctx.sql(sql).collect().to_pydict()
-        cold = (time.perf_counter() - t0) * 1e3
-        launches[name] = SD.smalldomain_sum_count.launches
+        rec = Recorder(stage_compiler.smalldomain_sum_count)
+        stage_compiler.smalldomain_sum_count = rec
+        try:
+            SD.smalldomain_sum_count.launches = 0
+            t0 = time.perf_counter()
+            got = ctx.sql(sql).collect().to_pydict()
+            cold = (time.perf_counter() - t0) * 1e3
+            launches[name] = SD.smalldomain_sum_count.launches
+        finally:
+            stage_compiler.smalldomain_sum_count = rec.fn
         check_rows(name, got, want[name], SQL_FLOAT_COLS)
         if (launches[name] > 0) != (name in SQL_K1_QUERIES):
             raise AssertionError(f"{name}: K1 launched {launches[name]} times; the "
                                  f"{'small-domain' if name in SQL_K1_QUERIES else 'sort'} "
                                  f"path should launch it {'at least once' if name in SQL_K1_QUERIES else 'never'}")
+        if launches[name] and not rec.calls:
+            raise AssertionError(f"{name}: K1 launched outside the stage compiler's call")
+        for i, args in enumerate(rec.calls):  # the launches counted above
+            checked.append(f"{name}-inputs-{i}")
+            err = max(err, k1_check(checked[-1], *args))
+        del rec
         runs = warm_runs(ctx, sql, SQL_BATCHES)
         syncs0 = HOST_SYNCS[0]
         base_mb = torch.cuda.memory_allocated() / 2**20
@@ -534,7 +552,7 @@ def phase_sql(name_power: str) -> dict:
             f"{base_mb:.1f} MiB allocated before the run, the table's {table_mb:.1f} MiB among them)")
     del ctx, table
     torch.cuda.empty_cache()
-    return launches
+    return launches, err, checked
 
 
 # ---------------------------------------------------------------------------
@@ -611,7 +629,8 @@ def main() -> int:
     del ctx, args  # the Q1 table and K1's inputs: the sql phase measures memory
     torch.cuda.empty_cache()
 
-    sql_launches = phase_sql(name_power)
+    sql_launches, sql_err, sql_checked = phase_sql(name_power)
+    err = max(err, sql_err)
     phase_f4(name_power)
     by_path = {"q1": launches, **sql_launches}
 
@@ -631,6 +650,7 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": library_ms,
         "checked_against_plain": True,
+        "checked_at": ["K1_CASES", "q1-main-path-inputs", *sql_checked],
     }]
     print(name_power)
     print(json.dumps({"kernels": kernels}))

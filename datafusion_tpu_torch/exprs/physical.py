@@ -13,7 +13,8 @@ String semantics ride on sorted dictionaries (columnar/dictionary.py):
   compare of remapped codes;
 - LIKE / string functions -> a per-distinct-value host computation shipped
   as a code-indexed lookup table, applied with one device gather;
-- a cast to a string formats each distinct value on the host.
+- a cast to a string formats each distinct value on the host (the unique
+  and the gather stay on the device).
 
 Null semantics follow SQL three-valued logic (Kleene AND/OR).
 """
@@ -252,25 +253,25 @@ def _cast_from_string(col: CVec, d: StringDict, to: DataType, safe: bool) -> CVe
 
 
 def _cast_to_string(col: CVec) -> CVec:
-    """Format each distinct valid value on the host, as the reference
-    formats each row; the codes go back to the device in one copy."""
+    """Format each distinct value that a valid row holds on the host, as
+    the reference formats each row: the unique and the gather of the codes
+    run on the device, and only the distinct values cross to the host."""
     frm = col.dtype
-    host, hv = host_numpy(col.data), host_numpy(col.valid)
-    vals = host[hv]
-    # distinct bit patterns, so that -0.0 and 0.0 format apart
-    bits = vals.view(f"i{vals.itemsize}") if vals.dtype.kind == "f" else vals
-    _, first, inv = np.unique(bits, return_index=True, return_inverse=True)
-    uniq = vals[first]
+    uniq, inv = K.unique_bits(col.data)  # bits: -0.0 and 0.0 format apart
+    held = torch.zeros(uniq.shape[0], dtype=torch.int8, device=uniq.device)
+    held = held.scatter_reduce_(0, inv, col.valid.to(torch.int8), "amax")
+    used = host_numpy(held).astype(bool)
+    vals = host_numpy(uniq)[used]
     if frm.is_decimal:
-        strs = [f"{v / 10**frm.scale:.{frm.scale}f}" for v in uniq]
+        strs = [f"{v / 10**frm.scale:.{frm.scale}f}" for v in vals]
     elif frm == DATE32:
-        strs = [str(np.datetime64(int(v), "D")) for v in uniq]
+        strs = [str(np.datetime64(int(v), "D")) for v in vals]
     else:
-        strs = [str(v) for v in uniq]
+        strs = [str(v) for v in vals]
     d, ucodes = StringDict.from_strings(strs)
-    codes = np.zeros(len(host), dtype=np.int32)
-    codes[hv] = ucodes[inv.reshape(-1)]
-    return CVec(STRING, _lut(codes, col.data.device), col.valid, d)
+    lut = np.zeros(len(used), dtype=np.int32)
+    lut[used] = ucodes
+    return CVec(STRING, _lut(lut, col.data.device)[inv], col.valid, d)
 
 
 def _div_round_half_away(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -828,7 +829,8 @@ class PhysScalarFunction(PhysicalExpr):
         from ..functions.registry import _ROW_FNS
 
         n = self.name.lower()
-        # these materialize column DATA host-side (distinct-combo / unique)
+        # their dictionaries depend on the data: the distinct values (or
+        # value combinations) are formatted on the host
         if n in ("to_hex", "chr", "concat", "concat_ws"):
             return True
         if n in _ROW_FNS and any(not isinstance(a, PhysLit) for a in self.args[1:]):

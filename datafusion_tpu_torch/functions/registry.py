@@ -10,7 +10,7 @@ reference's semantics kept as they are: ``log`` is ``log10`` and
 ``round`` rounds half to even.  String functions run host-side once per
 *distinct* dictionary value and ship back as a code lookup table, applied
 with one device gather; functions of several column arguments run once
-per distinct combination of values.  Datetime functions are integer
+per distinct combination of values (found by a unique on the device).  Datetime functions are integer
 calendar arithmetic (functions/datetime_fns.py).  ``array`` builds a
 fixed-size list column, which is ported in slice 5.
 """
@@ -473,99 +473,89 @@ def _storage(dt: DataType) -> torch.dtype:
     return torch_dtype(dt.storage_np_dtype())
 
 
-def _unique_inverse(host: np.ndarray):
-    """(distinct values, inverse) of a host array, never empty."""
-    uniq, inv = np.unique(host, return_inverse=True)
-    if len(uniq) == 0:
-        uniq, inv = np.zeros(1, host.dtype), np.zeros(len(host), np.int64)
-    return uniq, np.asarray(inv).reshape(-1)
-
-
-def _codes_col(ucodes: np.ndarray, inv: np.ndarray, valid, like: torch.Tensor, d: StringDict) -> CVec:
-    """A string column from per-distinct codes and each row's distinct
-    index, on ``like``'s device."""
-    return CVec(STRING, torch.from_numpy(ucodes[inv]).to(like.device), valid, d)
+def _distinct(data: torch.Tensor):
+    """(the distinct values of a column buffer as a host array, never
+    empty; each row's index into them on the device): the unique runs on
+    the device and only the distinct values cross to the host."""
+    uniq, inv = K.unique_bits(data)
+    host = host_numpy(uniq)
+    if len(host) == 0:
+        host, inv = np.zeros(1, host.dtype), torch.zeros_like(data, dtype=torch.int64)
+    return host, inv
 
 
 def _int_map_by_unique(col: CVec, fn) -> CVec:
     """int column -> string column, computing fn once per DISTINCT value."""
-    uniq, inv = _unique_inverse(host_numpy(col.data))
+    uniq, inv = _distinct(col.data)
     d, ucodes = StringDict.from_strings([fn(v) for v in uniq])
-    return _codes_col(ucodes, inv, col.valid, col.data, d)
+    return CVec(STRING, _gather_lut(ucodes, inv), col.valid, d)
 
 
-def _col_string_codes(col: CVec):
-    """(codes, valid, values) with values a host list of distinct strings.
-
-    String columns pass their dictionary codes through; other types reduce
-    to distinct values first and format only those."""
-    if col.dtype.is_string:
-        return host_numpy(col.data), host_numpy(col.valid), list(col.dictionary.values)
-    uniq, inv = _unique_inverse(host_numpy(col.data))
-    dt = col.dtype
+def _format_values(uniq: np.ndarray, dt: DataType) -> list:
+    """Distinct values of a non-string column as concat prints them."""
     if dt.is_decimal:
-        vals = [f"{v / 10**dt.scale:.{dt.scale}f}" for v in uniq]
-    elif dt == DATE32:
-        vals = [str(np.datetime64(int(v), "D")) for v in uniq]
-    elif dt == TIMESTAMP_US:
-        vals = [str(np.datetime64(int(v), "us")) for v in uniq]
-    elif dt.is_bool:
-        vals = [("true" if v else "false") for v in uniq]
-    else:
-        vals = [str(v) for v in uniq]
-    return inv, host_numpy(col.valid), vals
+        return [f"{v / 10**dt.scale:.{dt.scale}f}" for v in uniq]
+    if dt == DATE32:
+        return [str(np.datetime64(int(v), "D")) for v in uniq]
+    if dt == TIMESTAMP_US:
+        return [str(np.datetime64(int(v), "us")) for v in uniq]
+    if dt.is_bool:
+        return [("true" if v else "false") for v in uniq]
+    return [str(v) for v in uniq]
 
 
-def _host_values(col: CVec):
-    """(combo codes int64 with -1 where null, typed host values per code).
-
-    String columns contribute their dictionary codes directly; other types
-    reduce to distinct values so host work is per-distinct."""
-    valid = host_numpy(col.valid)
-    if col.dtype.is_string:
-        vals = [str(v) for v in col.dictionary.values] if col.dictionary and len(col.dictionary) else [""]
-        codes = np.clip(host_numpy(col.data).astype(np.int64), 0, len(vals) - 1)
-        return np.where(valid, codes, -1), vals
-    uniq, inv = _unique_inverse(host_numpy(col.data))
-    dt = col.dtype
+def _typed_values(uniq: np.ndarray, dt: DataType) -> list:
+    """Distinct values of a non-string column as Python values."""
     if dt.is_decimal:
-        vals = [v / 10**dt.scale for v in uniq.tolist()]
-    elif dt.is_float:
-        vals = [float(v) for v in uniq]
-    elif dt.is_bool:
-        vals = [bool(v) for v in uniq]
+        return [v / 10**dt.scale for v in uniq.tolist()]
+    if dt.is_float:
+        return [float(v) for v in uniq]
+    if dt.is_bool:
+        return [bool(v) for v in uniq]
+    return [int(v) for v in uniq]
+
+
+def _col_codes(col: CVec, values_of):
+    """(each row's code on the device, -1 where null; the host value behind
+    each code).  String columns pass their dictionary codes through; other
+    columns reduce to their distinct values, which ``values_of`` turns into
+    host values."""
+    if col.dtype.is_string:
+        vals = list(col.dictionary.values) if col.dictionary and len(col.dictionary) else [""]
+        codes = torch.clamp(col.data.to(torch.int64), 0, len(vals) - 1)
     else:
-        vals = [int(v) for v in uniq]
-    return np.where(valid, inv.astype(np.int64), -1), vals
+        uniq, codes = _distinct(col.data)
+        vals = values_of(uniq, col.dtype)
+    return torch.where(col.valid, codes, -1), vals
+
+
+def _distinct_combos(cols: list[CVec], values_of):
+    """(the distinct rows of the columns' codes as a host [k, ncols] array,
+    -1 for a null; the host values behind each column's codes; each row's
+    index into the combinations on the device)."""
+    codes, values_l = zip(*(_col_codes(c, values_of) for c in cols))
+    combos, inv = torch.unique(torch.stack(codes, dim=1), dim=0, return_inverse=True)
+    return host_numpy(combos), values_l, inv
 
 
 def _combo_map(cols: list[CVec], fn, out_dtype: DataType) -> CVec:
-    """Vectorized multi-column scalar function: rows reduce to per-column
-    code tuples, np.unique(axis=0) finds the distinct combinations, fn runs
-    once per combination, and results ship back as one device copy.  Null
-    in any argument nulls the row (standard SQL scalar-function
-    semantics)."""
-    mats, values_l = [], []
-    for c in cols:
-        codes, vals = _host_values(c)
-        mats.append(codes)
-        values_l.append(vals)
-    mat = np.stack(mats, axis=1)  # [nrows, k]
-    combos, inv = np.unique(mat, axis=0, return_inverse=True)
-    inv = np.asarray(inv).reshape(-1)
-    ok = (combos >= 0).all(axis=1)
+    """Vectorized multi-column scalar function: fn runs once per distinct
+    combination of argument values, and the results go back to the rows by
+    one device gather.  Null in any argument nulls the row (standard SQL
+    scalar-function semantics)."""
+    combos, values_l, inv = _distinct_combos(cols, _typed_values)
     valid = cols[0].valid
     for c in cols[1:]:
         valid = valid & c.valid
     results = [
-        fn(*[values_l[j][int(cd)] for j, cd in enumerate(row)]) if k else None
-        for row, k in zip(combos, ok)
+        fn(*[values_l[j][int(cd)] for j, cd in enumerate(row)]) if (row >= 0).all() else None
+        for row in combos
     ]
     if out_dtype.is_string:
         d, ucodes = StringDict.from_strings(["" if r is None else r for r in results])
-        return _codes_col(ucodes, inv, valid, cols[0].data, d)
+        return CVec(STRING, _gather_lut(ucodes, inv), valid, d)
     lut = np.array([0 if r is None else r for r in results], dtype=out_dtype.storage_np_dtype())
-    return CVec(out_dtype, torch.from_numpy(lut[inv]).to(cols[0].data.device), valid)
+    return CVec(out_dtype, _gather_lut(lut, inv), valid)
 
 
 def _sql_substr(s, start, length=None):
@@ -635,7 +625,7 @@ _ROW_FNS: dict[str, Callable] = {
 
 def _concat_columns(n: str, args: list[CVec]) -> CVec:
     """concat / concat_ws via distinct-combo pairing: rows reduce to code
-    tuples, np.unique(axis=0) finds the distinct combinations, and strings
+    tuples, a device unique finds the distinct combinations, and strings
     materialize once per combination.
 
     Null semantics mirror the reference (string_expressions.rs concat):
@@ -654,17 +644,11 @@ def _concat_columns(n: str, args: list[CVec]) -> CVec:
                 StringDict.empty(),
             )
         sep = str(sep)
-    codes_l, values_l = [], []
-    for c in cols:
-        codes, valid, values = _col_string_codes(c)
-        codes_l.append(np.where(valid, codes, -1).astype(np.int64))
-        values_l.append(values)
-    mat = np.stack(codes_l, axis=1)  # [nrows, k]
-    combos, inv = np.unique(mat, axis=0, return_inverse=True)
+    combos, values_l, inv = _distinct_combos(cols, _format_values)
     strs = []
     for row in combos:
         parts = [values_l[j][int(c)] for j, c in enumerate(row) if c >= 0]
         strs.append("".join(parts) if n == "concat" else sep.join(parts))
     d, ucodes = StringDict.from_strings(strs)
     like = cols[0].data
-    return _codes_col(ucodes, np.asarray(inv).reshape(-1), torch.ones_like(like, dtype=torch.bool), like, d)
+    return CVec(STRING, _gather_lut(ucodes, inv), torch.ones_like(like, dtype=torch.bool), d)

@@ -188,13 +188,6 @@ class HashAggregateExec(ExecutionPlan):
 # ---------------------------------------------------------------------------
 
 
-def _segment_first_index(gid, cap, alive):
-    """Index (into sorted order) of the first row of each segment (entries
-    past the real segment count are garbage; callers mask by ngroups)."""
-    first_pos, _ = K._segment_positions(gid)
-    return first_pos
-
-
 def _neutral(ordk: torch.Tensor, f: str) -> torch.Tensor:
     """The identity of min (f == "min") or max over ``ordk``'s dtype."""
     if ordk.is_floating_point():
@@ -205,20 +198,22 @@ def _neutral(ordk: torch.Tensor, f: str) -> torch.Tensor:
     return torch.tensor(v, dtype=ordk.dtype, device=ordk.device)
 
 
-def _eval_aggregate(a: PhysAggExpr, t: Table, perm, gid, cap, alive, ngroups, emit_state: bool):
+def _eval_aggregate(a: PhysAggExpr, t: Table, perm, seg: K.Segments, cap, alive, ngroups,
+                    emit_state: bool):
     """Compute one aggregate over sorted/grouped rows.
 
     ``perm`` is the group sort's permutation of ``t``'s rows (None when
-    ``t`` is already in group order).  Returns a list of state Columns
-    (emit_state) or [final Column], each [cap] in segment order."""
+    ``t`` is already in group order); ``seg`` the grouping's segments.
+    Returns a list of state Columns (emit_state) or [final Column], each
+    [cap] in segment order."""
     f = a.fun
     if a.distinct and f not in ("count", "sum", "avg", "min", "max"):
         raise PlanError(f"DISTINCT not supported for {f}")
-    dev = gid.device
+    dev = seg.gid.device
     gvalid = torch.arange(cap, device=dev) < ngroups
 
-    if a.expr is None:  # COUNT(*)
-        cnt = K.segment_sum(alive.to(torch.int64), gid, cap)
+    if a.expr is None:  # COUNT(*): the live rows are exactly the groups' rows
+        cnt = torch.where(gvalid, seg.last - seg.first + 1, 0)
         return [Column(INT64, cnt, gvalid)]
     if a.udf is not None:
         raise NotImplementedError("user-defined aggregates are ported in slice 5")
@@ -231,10 +226,10 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, gid, cap, alive, ngroups, em
 
     if a.distinct:
         # mask duplicate (group, value) pairs so each distinct value counts once
-        data, valid = _distinct_mask(v, perm, gid, data, valid, cap)
+        data, valid = _distinct_mask(v, seg.gid, data, valid)
 
     def count():
-        return K.segment_sum(valid.to(torch.int64), gid, cap)
+        return K.segment_sum(valid.to(torch.int64), seg, cap)
 
     if f == "count":
         return [Column(INT64, count(), gvalid)]
@@ -243,7 +238,7 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, gid, cap, alive, ngroups, em
         rt = a.return_type()
         dt = torch_dtype(rt.storage_np_dtype())
         acc = K.signed_view(data.to(dt))
-        s = K.segment_sum(torch.where(valid, acc, torch.zeros((), dtype=acc.dtype, device=dev)), gid, cap)
+        s = K.segment_sum(torch.where(valid, acc, torch.zeros((), dtype=acc.dtype, device=dev)), seg, cap)
         s = s.view(dt)
         cnt = count()
         sum_col = Column(rt, s, gvalid & (cnt > 0))
@@ -255,10 +250,10 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, gid, cap, alive, ngroups, em
         t_in = v.dtype
         ordk = data if t_in.is_float else K.orderable_key(data, t_in, v.vrange)
         vals = torch.where(valid, ordk, _neutral(ordk, f))
-        red = K.segment_min(vals, gid, cap) if f == "min" else K.segment_max(vals, gid, cap)
+        red = K.segment_min(vals, seg, cap) if f == "min" else K.segment_max(vals, seg, cap)
         if t_in.is_float:
             zero = signed_zeros(data, valid, f)
-            red = zero_sign_fix(red, f, K.segment_sum(zero.to(torch.int64), gid, cap) > 0)
+            red = zero_sign_fix(red, f, K.segment_sum(zero.to(torch.int64), seg, cap) > 0)
         cnt = count()
         out = red.to(torch_dtype(t_in.storage_np_dtype()))
         col = Column(t_in, out, gvalid & (cnt > 0), v.dictionary)
@@ -268,7 +263,7 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, gid, cap, alive, ngroups, em
 
     if f == "avg":
         fd = _to_float(data, v.dtype)
-        s = K.segment_sum(torch.where(valid, fd, 0.0), gid, cap)
+        s = K.segment_sum(torch.where(valid, fd, 0.0), seg, cap)
         cnt = count()
         if emit_state:
             return [Column(FLOAT64, s, gvalid), Column(INT64, cnt, gvalid)]
@@ -277,8 +272,8 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, gid, cap, alive, ngroups, em
     if f in VARIANCE_FUNS:
         fd = _to_float(data, v.dtype)
         n = count()
-        s = K.segment_sum(torch.where(valid, fd, 0.0), gid, cap)
-        ss = K.segment_sum(torch.where(valid, fd * fd, 0.0), gid, cap)
+        s = K.segment_sum(torch.where(valid, fd, 0.0), seg, cap)
+        ss = K.segment_sum(torch.where(valid, fd * fd, 0.0), seg, cap)
         if emit_state:
             return [Column(INT64, n, gvalid), Column(FLOAT64, s, gvalid), Column(FLOAT64, ss, gvalid)]
         out, ok = _finalize_var(f, n, s, ss)
@@ -301,7 +296,7 @@ def zero_sign_fix(red: torch.Tensor, f: str, has: torch.Tensor) -> torch.Tensor:
     return torch.where(red == 0, torch.where(has, lo, hi).to(red.dtype), red)
 
 
-def _distinct_mask(v, perm, gid, data, valid, cap):
+def _distinct_mask(v, gid, data, valid):
     """Keep the first occurrence of each (group, value) pair; null out the
     rest.  Sorts rows by (gid, value) and detects boundaries, the same
     primitive as grouping itself (the reference uses per-group HashSets,

@@ -7,7 +7,7 @@ batches the boundary reads of many reductions into one packed gather,
 because gathers are slow on a TPU.  On a GPU a gather is cheap, so here a
 sort computes one permutation (successive stable ``torch.sort`` passes
 from the least significant key up) and every column is gathered by
-itself (``take_rows``).
+itself (``take``).
 
 Segment reductions assume SORTED dense group ids (0..ngroups-1 for live
 rows, cap-1 for the trailing dead rows), the invariant every grouping
@@ -15,13 +15,15 @@ path produces.  Integer sums are one global cumsum read at the segment
 ends, exact mod 2^64 like the reference; float sums, minima and maxima are
 a segmented scan that restarts at each boundary, so each segment adds
 only its own values, in a fixed order (no cancellation, and the same
-result from run to run).  Boundary positions come from a scatter of row
-positions, with no host sync.
+result from run to run).  The segment bounds come from binary searches
+over the sorted ids, once per grouping (``segments``), with no host sync.
 
 The join primitives are ported with the joins (slice 3).
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -59,15 +61,6 @@ def orderable_key(data: torch.Tensor, dtype: DataType, vrange=None) -> torch.Ten
     return data.to(torch.int64)
 
 
-def hashable_key(data: torch.Tensor, dtype: DataType) -> torch.Tensor:
-    """int64 key for hashing: floats go through a float32 bitcast (equal
-    float64s map to equal int64s, which is all hashing needs; exactness
-    comes from verifying keys after the probe)."""
-    if dtype.is_float:
-        return data.to(torch.float32).view(torch.int32).to(torch.int64)
-    return data.to(torch.int64)
-
-
 # ---------------------------------------------------------------------------
 # unsigned storage
 #
@@ -95,6 +88,20 @@ def gather(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def where_bits(mask: torch.Tensor, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """torch.where(mask, a, b) for two tensors of one storage dtype."""
     return torch.where(mask, signed_view(a), signed_view(b)).view(a.dtype)
+
+
+# the signed type of each storage dtype torch's CUDA unique leaves out,
+# and of each float: a unique over bits tells -0.0 from 0.0
+_UNIQUE_BITS = {**_SIGNED_TWIN, torch.bool: torch.int8, torch.float16: torch.int16,
+                torch.bfloat16: torch.int16, torch.float32: torch.int32, torch.float64: torch.int64}
+
+
+def unique_bits(x: torch.Tensor):
+    """(the distinct bit patterns of x as x's dtype, each row's index into
+    them), both on x's device."""
+    b = _UNIQUE_BITS.get(x.dtype)
+    uniq, inv = torch.unique(x if b is None else x.view(b), return_inverse=True)
+    return (uniq if b is None else uniq.view(x.dtype)), inv
 
 
 # ---------------------------------------------------------------------------
@@ -205,20 +212,10 @@ def lexsort_perm(
     return perm
 
 
-def take_rows(datas: tuple, valids: tuple, idx: torch.Tensor, extra_masks: tuple = ()):
-    """Gather rows of many columns by one index vector, one gather per
-    column.  Returns (datas_out, valids_out, extra_masks_out)."""
-    return (
-        tuple(gather(d, idx) for d in datas),
-        tuple(v[idx] for v in valids),
-        tuple(m[idx] for m in extra_masks),
-    )
-
-
 def take(datas: tuple, valids: tuple, idx: torch.Tensor):
-    """Gather rows by index (the reference's arrow `take` kernel)."""
-    out_d, out_v, _ = take_rows(datas, valids, idx)
-    return out_d, out_v
+    """Gather rows of many columns by one index vector, one gather per
+    column (the reference's ``take_rows`` and arrow ``take``)."""
+    return tuple(gather(d, idx) for d in datas), tuple(v[idx] for v in valids)
 
 
 # ---------------------------------------------------------------------------
@@ -261,43 +258,39 @@ def group_ids_sorted(sorted_keys: tuple, sorted_valids: tuple, nrows):
     return _gid_from_boundary(boundary, nrows)
 
 
-def _segment_starts(gid: torch.Tensor) -> torch.Tensor:
-    start = torch.ones_like(gid, dtype=torch.bool)
-    start[1:] = gid[1:] != gid[:-1]
-    return start
+class Segments(NamedTuple):
+    """The segments of sorted dense group ids, found once per grouping and
+    read by every reduction over it.  ``first`` and ``last`` hold the first
+    and last row of each segment ordinal in [0, cap); only ordinals below
+    the segment count are meaningful (callers mask by ngroups).  ``start``
+    holds each row's segment's first row."""
+
+    gid: torch.Tensor
+    first: torch.Tensor
+    last: torch.Tensor
+    start: torch.Tensor
 
 
-def _segment_positions(gid: torch.Tensor):
-    """(first_pos, last_pos) per dense segment ordinal, segment-ordered.
-
-    Only entries [0, #segments) are meaningful; callers mask by ngroups
-    (the rest read 0, in gather range)."""
+def segments(gid: torch.Tensor) -> Segments:
+    """Segment bounds of sorted group ids by binary search (no scatter, no
+    host sync)."""
     cap = gid.shape[0]
-    pos = torch.arange(cap, device=gid.device)
-    start = _segment_starts(gid)
-    end = torch.ones_like(start)
-    end[:-1] = start[1:]
-    seg = torch.cumsum(start, 0) - 1  # each row's segment ordinal
-
-    def scatter(at):
-        # rows that are not at a segment edge write to slot `cap`, dropped
-        out = torch.zeros(cap + 1, dtype=torch.int64, device=gid.device)
-        return out.scatter_(0, torch.where(at, seg, cap), pos)[:cap]
-
-    return scatter(start), scatter(end)
+    ords = torch.arange(cap, dtype=gid.dtype, device=gid.device)
+    first = torch.searchsorted(gid, ords).clamp_(max=cap - 1)
+    last = (torch.searchsorted(gid, ords, right=True) - 1).clamp_(min=0)
+    return Segments(gid, first, last, first[gid])
 
 
-def _segment_scan(values: torch.Tensor, gid: torch.Tensor, combine):
+def _segment_scan(values: torch.Tensor, seg: Segments, combine):
     """Running within-segment reduction (restarts at boundaries): a
     Hillis-Steele scan, log2(cap) passes, each row combining with the row
     `d` back while that row lies in its segment."""
     cap = values.shape[0]
     pos = torch.arange(cap, device=values.device)
-    seg_start = torch.cummax(torch.where(_segment_starts(gid), pos, 0), 0).values
     run = values
     d = 1
     while d < cap:
-        same = pos - d >= seg_start
+        same = pos - d >= seg.start
         run = torch.where(same, combine(torch.roll(run, d), run), run)
         d *= 2
     return run
@@ -308,26 +301,22 @@ def _wrap_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return x.view(dtype) if dtype == torch.uint64 else x.to(dtype)
 
 
-def segment_sum(values: torch.Tensor, gid: torch.Tensor, num_segments: int):
-    _, last = _segment_positions(gid)
+def segment_sum(values: torch.Tensor, seg: Segments, num_segments: int):
     if values.is_floating_point():
-        out = _segment_scan(values, gid, torch.add)[last]
+        out = _segment_scan(values, seg, torch.add)[seg.last]
     else:
-        # exact for ints, mod 2^64: one global cumsum read at the segment
-        # ends, minus the previous segment's end
+        # exact for ints, mod 2^64: one global cumsum, read after each
+        # segment's last row minus before its first
         dt = values.dtype
         v = values.view(torch.int64) if dt == torch.uint64 else values.to(torch.int64)
-        hi = torch.cumsum(v, 0)[last]
-        prev = torch.cat([hi.new_zeros(1), hi[:-1]])
-        out = _wrap_to(hi - prev, dt)
+        run = torch.cat([v.new_zeros(1), torch.cumsum(v, 0)])
+        out = _wrap_to(run[seg.last + 1] - run[seg.first], dt)
     return out[:num_segments]
 
 
-def segment_min(values: torch.Tensor, gid: torch.Tensor, num_segments: int):
-    _, last = _segment_positions(gid)
-    return _segment_scan(values, gid, torch.minimum)[last][:num_segments]
+def segment_min(values: torch.Tensor, seg: Segments, num_segments: int):
+    return _segment_scan(values, seg, torch.minimum)[seg.last][:num_segments]
 
 
-def segment_max(values: torch.Tensor, gid: torch.Tensor, num_segments: int):
-    _, last = _segment_positions(gid)
-    return _segment_scan(values, gid, torch.maximum)[last][:num_segments]
+def segment_max(values: torch.Tensor, seg: Segments, num_segments: int):
+    return _segment_scan(values, seg, torch.maximum)[seg.last][:num_segments]

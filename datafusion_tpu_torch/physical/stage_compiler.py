@@ -38,7 +38,6 @@ from ..ops.aggregate import (
     _eval_aggregate,
     _finalize_var,
     _neutral,
-    _segment_first_index,
     _to_float,
     signed_zeros,
     zero_sign_fix,
@@ -412,16 +411,16 @@ def _sorted_aggregate(op, t, key_cols, alive, cap, emit_state):
     gid, ngroups = K.group_ids_sorted(
         tuple(k[perm] for k in ordkeys), tuple(v[perm] for v in kvalids), n
     )
+    seg = K.segments(gid)  # read by every reduction below
     alive_sorted = torch.arange(cap, device=dev) < n
     gvalid_rows = torch.arange(cap, device=dev) < ngroups
     # each group's keys from its first row in sorted order
-    first = perm[_segment_first_index(gid, cap, alive_sorted)]
-    kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, first)
+    kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, perm[seg.first])
     out_d = list(kd)
     out_v = [v & gvalid_rows for v in kv]
     agg_dicts = {}
     for a in op.aggr_expr:
-        cols = _eval_aggregate(a, t, perm, gid, cap, alive_sorted, ngroups, emit_state)
+        cols = _eval_aggregate(a, t, perm, seg, cap, alive_sorted, ngroups, emit_state)
         if a.fun in ("min", "max") and a.expr is not None and not emit_state:
             agg_dicts[a.name] = cols[0].dictionary
         for c in cols:

@@ -84,22 +84,45 @@ def test_take_rows_and_take_match_numpy(rng):
     idx = rng.integers(0, cap, 777)
     datas = (rng.integers(-(10**9), 10**9, cap), rng.random(cap),
              rng.integers(0, 2**63, cap, dtype=np.uint64))
-    valids = (rng.random(cap) > 0.5,)
-    extra = (rng.random(cap) > 0.3,)
-    d, v, e = K.take_rows(tuple(_t(x) for x in datas), (_t(valids[0]),), _t(idx), (_t(extra[0]),))
-    for got, src in zip(d + v + e, datas + valids + extra):
-        assert np.array_equal(_np(got), src[idx])
-    d2, v2 = K.take(tuple(_t(x) for x in datas), (_t(valids[0]),), _t(idx))
-    assert all(np.array_equal(_np(a), _np(b)) for a, b in zip(d2 + v2, d + v))
+    valids = (rng.random(cap) > 0.5, rng.random(cap) > 0.3)
+    d, v = K.take(tuple(_t(x) for x in datas), tuple(_t(x) for x in valids), _t(idx))
+    assert len(d) == len(datas) and len(v) == len(valids)
+    for got, src in zip(d + v, datas + valids):
+        assert got.dtype == _t(src).dtype and np.array_equal(_np(got), src[idx])
 
 
-@pytest.mark.parametrize("kind", ["int64", "float64", "float32", "int32", "bool"])
-def test_hashable_key_matches_jax(rng, kind):
-    raw = rng.normal(size=1000) * 1e6
-    data = raw.astype(kind) if kind != "bool" else raw > 0
-    want = JK.hashable_key(jnp.asarray(data), JT.DataType(kind))
-    got = K.hashable_key(_t(data), T.DataType(kind))
-    assert got.dtype == torch.int64 and np.array_equal(_np(got), _np(want))
+def _gid_of_kind(rng, kind, cap=4096):
+    """Sorted dense group ids of one shape: (gid, live rows)."""
+    if kind == "dense":
+        return _sorted_gid(rng, cap, 3700, 40), 3700
+    if kind == "singletons":  # every live row a group of its own
+        n = 3000
+        return np.concatenate([np.arange(n), np.full(cap - n, cap - 1)]), n
+    if kind == "one-segment":
+        n = 2500
+        return np.where(np.arange(cap) < n, 0, cap - 1), n
+    if kind == "full-buffer":  # no dead tail
+        return _sorted_gid(rng, cap, cap, 300), cap
+    assert kind == "single-row"
+    return np.where(np.arange(cap) < 1, 0, cap - 1), 1
+
+
+@pytest.mark.parametrize("kind", ["dense", "singletons", "one-segment", "full-buffer", "single-row"])
+def test_segments_match_jax_positions(rng, kind):
+    """The port's binary-searched segment bounds equal the reference's
+    sorted positions on every real segment; each row's start is its
+    segment's first row; last - first + 1 is the segment's size."""
+    gid, n = _gid_of_kind(rng, kind)
+    gid = gid.astype(np.int64)
+    seg = K.segments(_t(gid))
+    jfirst, jlast = JK._segment_positions_impl(jnp.asarray(gid))
+    nseg = int(gid[n - 1]) + 1
+    first, last = _np(seg.first)[:nseg], _np(seg.last)[:nseg]
+    assert np.array_equal(first, _np(jfirst)[:nseg]) and np.array_equal(last, _np(jlast)[:nseg])
+    assert np.array_equal(last - first + 1, np.bincount(gid[:n], minlength=nseg))
+    assert np.array_equal(_np(seg.start)[:n], first[gid[:n]])
+    # entries past the real segments stay in gather range
+    assert _np(seg.first).min() >= 0 and _np(seg.last).max() < len(gid)
 
 
 def test_segment_sum_int_and_float_match_jax(rng):
@@ -107,8 +130,9 @@ def test_segment_sum_int_and_float_match_jax(rng):
     gid = _sorted_gid(rng, cap, n, 40)
     ints = rng.integers(-(10**12), 10**12, cap)
     floats = rng.random(cap) * 1e3 - 500
-    si = _np(K.segment_sum(_t(ints), _t(gid), cap))
-    sf = _np(K.segment_sum(_t(floats), _t(gid), cap))
+    seg = K.segments(_t(gid))
+    si = _np(K.segment_sum(_t(ints), seg, cap))
+    sf = _np(K.segment_sum(_t(floats), seg, cap))
     wi = _np(J_SUM(jnp.asarray(ints), jnp.asarray(gid), cap))
     wf = _np(J_SUM(jnp.asarray(floats), jnp.asarray(gid), cap))
     nseg = gid[n - 1] + 1
@@ -126,7 +150,7 @@ def test_segment_sum_wraps_like_jax(rng, grouped):
     cap, n = 4096, 4000
     gid = _sorted_gid(rng, cap, n, 5) if grouped else np.where(np.arange(cap) < n, 0, cap - 1)
     vals = rng.choice([2**62, -(2**62), 2**62 - 1, 3 * 2**61], cap).astype(np.int64)
-    got = _np(K.segment_sum(_t(vals), _t(gid), cap))
+    got = _np(K.segment_sum(_t(vals), K.segments(_t(gid)), cap))
     want = _np(J_SUM(jnp.asarray(vals), jnp.asarray(gid), cap))
     nseg = gid[n - 1] + 1
     assert np.array_equal(got[:nseg], want[:nseg])
@@ -139,7 +163,7 @@ def test_segment_min_max_match_jax(rng):
     gid = _sorted_gid(rng, cap, n, 60)
     for vals in (rng.integers(-(10**15), 10**15, cap), rng.normal(size=cap)):
         for ours, theirs in ((K.segment_min, J_MIN), (K.segment_max, J_MAX)):
-            got = _np(ours(_t(vals), _t(gid), cap))
+            got = _np(ours(_t(vals), K.segments(_t(gid)), cap))
             want = _np(theirs(jnp.asarray(vals), jnp.asarray(gid), cap))
             nseg = gid[n - 1] + 1
             assert np.array_equal(got[:nseg], want[:nseg])
@@ -148,16 +172,16 @@ def test_segment_min_max_match_jax(rng):
 def test_segment_positions_full_buffer():
     """An exactly full buffer (no dead tail): the last segment covers all
     its rows; the twin of the reference test of the same name."""
-    gid = torch.tensor([0, 0, 1, 1])
-    first, last = K._segment_positions(gid)
-    assert first.tolist()[:2] == [0, 2] and last.tolist()[:2] == [1, 3]
-    assert K.segment_sum(torch.tensor([1, 2, 3, 4]), gid, 4).tolist()[:2] == [3, 7]
-    assert K.segment_sum(torch.tensor([1.0, 2.0, 3.0, 4.0]), gid, 4).tolist()[:2] == [3.0, 7.0]
-    assert K.segment_min(torch.tensor([4, 3, 2, 1]), gid, 4).tolist()[:2] == [3, 1]
-    assert K.segment_max(torch.tensor([1, 2, 9, 4]), gid, 4).tolist()[:2] == [2, 9]
-    assert int(K.segment_sum(torch.arange(8), torch.zeros(8, dtype=torch.int64), 8)[0]) == 28
-    gid2 = torch.tensor([0, 0, 1, 3])  # trailing dead row
-    assert K.segment_sum(torch.tensor([1, 2, 3, 99]), gid2, 4).tolist()[:2] == [3, 3]
+    seg = K.segments(torch.tensor([0, 0, 1, 1]))
+    assert seg.first.tolist()[:2] == [0, 2] and seg.last.tolist()[:2] == [1, 3]
+    assert K.segment_sum(torch.tensor([1, 2, 3, 4]), seg, 4).tolist()[:2] == [3, 7]
+    assert K.segment_sum(torch.tensor([1.0, 2.0, 3.0, 4.0]), seg, 4).tolist()[:2] == [3.0, 7.0]
+    assert K.segment_min(torch.tensor([4, 3, 2, 1]), seg, 4).tolist()[:2] == [3, 1]
+    assert K.segment_max(torch.tensor([1, 2, 9, 4]), seg, 4).tolist()[:2] == [2, 9]
+    one = K.segments(torch.zeros(8, dtype=torch.int64))
+    assert int(K.segment_sum(torch.arange(8), one, 8)[0]) == 28
+    seg2 = K.segments(torch.tensor([0, 0, 1, 3]))  # trailing dead row
+    assert K.segment_sum(torch.tensor([1, 2, 3, 99]), seg2, 4).tolist()[:2] == [3, 3]
 
 
 def test_group_ids_sorted_nan_and_signed_zero_keys_match_jax(rng):
@@ -214,9 +238,9 @@ def test_grouping_primitives_per_storage_dtype_match_jax(kind):
     nseg = int(ng)
     if storage != np.bool_:
         sums = _t(data[perm]).to(torch.float64 if storage.kind == "f" else torch.int64)
-        got = _np(K.segment_sum(sums, gid, cap))[:nseg]
+        got = _np(K.segment_sum(sums, K.segments(gid), cap))[:nseg]
         want = _np(J_SUM(jnp.asarray(_np(sums)), jgid, cap))[:nseg]
         assert np.array_equal(got, want)
     for ours, theirs in ((K.segment_min, J_MIN), (K.segment_max, J_MAX)):
-        got = _np(ours(tk[perm], gid, cap))[:nseg]
+        got = _np(ours(tk[perm], K.segments(gid), cap))[:nseg]
         assert np.array_equal(got, _np(theirs(jk[perm], jgid, cap))[:nseg])
