@@ -33,6 +33,20 @@ Phases (each raises, and the script exits non-zero, on failure):
                the top device ops of q18_bigorders
   7. f4      - the card's float64 sqrt against numpy's over 10^6 values,
                and a grouped stddev against the numpy oracle
+  8. tpch    - the 22 TPC-H queries over the eight tables of
+               datafusion_tpu_torch/tpchdata.py, through run_tpch: at SF 0.1
+               each query's rows on the card equal the port's on the CPU
+               over the same host arrays (keys, counts and decimals exact,
+               floats rel 1e-12; in order where FULLY_ORDERED says so, else
+               as multisets), and K1 is launched by exactly the queries whose
+               CPU run calls it (TPCH_K1_QUERIES); at SF1 Q3, Q12 and Q18
+               match numpy oracles, K1's path is asserted again, and per
+               query it prints warm medians of 5 runs five times over (two
+               once the loop has run TPCH_BUDGET_S seconds), kernel time,
+               launches and idle share of one profiled run, host syncs per
+               run, peak memory and each join's candidate pairs; then the
+               top device ops of the join query with the most kernel time.
+               K1 is held against its plain version at every call's inputs
 The last two lines are the kernels JSON line and the ok JSON line.
 """
 
@@ -52,10 +66,11 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from datafusion_tpu_torch import ExecutionContext
+from datafusion_tpu_torch import ExecutionContext, tpchdata
 from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
 from datafusion_tpu_torch.columnar.table import HOST_SYNCS
 from datafusion_tpu_torch.ops import smalldomain as SD
+from datafusion_tpu_torch.ops.join import HashJoinExec
 from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
 from datafusion_tpu_torch.physical import stage_compiler
 from datafusion_tpu_torch.q1data import (
@@ -66,7 +81,13 @@ from datafusion_tpu_torch.q1data import (
     lineitem_arrays,
     lineitem_q1_arrays,
 )
-from datafusion_tpu_torch.queries import NAMED_QUERIES, get_named_query, get_query_sql
+from datafusion_tpu_torch.queries import (
+    FULLY_ORDERED,
+    NAMED_QUERIES,
+    get_named_query,
+    get_query_sql,
+    run_tpch,
+)
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SF = 1.0
@@ -328,14 +349,15 @@ def kernel_only_ms(fn, kernel: str, iters: int = 200, tries: int = 3):
                          f"in {tries} windows")
 
 
-def profile_query(ctx, sql: str, label: str, name_power: str, top: int = 12) -> dict:
-    """Where one warm run of ``sql`` spends device time, by operator (the
-    ``top`` operators printed); returns its wall and kernel time."""
+def profile_run(run, top: int = 15) -> dict:
+    """Where one call of ``run`` spends device time, under torch.profiler:
+    wall and kernel time, launches, idle share and the ``top`` operators by
+    device time, as printable lines."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        ctx.sql(sql).collect().to_pydict()
+        run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     events = list(prof.key_averages())
@@ -343,27 +365,34 @@ def profile_query(ctx, sql: str, label: str, name_power: str, top: int = 12) -> 
     # events repeat their kernels' device time
     kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
-    launches = sum(e.count for e in kernels)
-    log(f"[profile] {name_power}: one warm {label} (profiled) {wall:.3f} ms wall, "
-        f"{busy:.3f} ms kernel time, device idle share {1 - busy / wall:.1%}")
-    ops = [e for e in events if e.device_type != torch.autograd.DeviceType.CUDA]
-    for e in sorted(ops, key=lambda e: e.self_device_time_total, reverse=True)[:top]:
-        if e.self_device_time_total <= 0:
-            break
-        log(f"[profile]   {e.self_device_time_total / 1e3:9.3f} ms device  "
-            f"{e.count:4d} calls  {e.key[:60]}")
-    log(f"[profile]   {len(kernels)} distinct kernels, {launches} launches")
+    ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA),
+                 key=lambda e: e.self_device_time_total, reverse=True)
+    lines = [f"{e.self_device_time_total / 1e3:9.3f} ms device  {e.count:5d} calls  {e.key[:60]}"
+             for e in ops[:top] if e.self_device_time_total > 0]
+    lines.append(f"{len(kernels)} distinct kernels, {sum(e.count for e in kernels)} launches")
     return {"profiled_wall_ms": wall, "kernel_ms": busy, "idle_share": 1 - busy / wall,
-            "launches": launches}
+            "launches": sum(e.count for e in kernels), "top": lines}
 
 
-def warm_runs(ctx, sql: str, batches: int) -> list:
-    """Milliseconds of ``batches`` * 5 warm runs, after two warm-ups, each
-    ending in a synchronize."""
+def profile_query(ctx, sql: str, label: str, name_power: str, top: int = 12) -> dict:
+    """One warm run of ``sql`` profiled (``profile_run``), printed with its
+    ``top`` operators."""
+    prof = profile_run(lambda: ctx.sql(sql).collect().to_pydict(), top)
+    log(f"[profile] {name_power}: one warm {label} (profiled) {prof['profiled_wall_ms']:.3f} ms wall, "
+        f"{prof['kernel_ms']:.3f} ms kernel time, device idle share {prof['idle_share']:.1%}")
+    if top:
+        for line in prof["top"]:
+            log(f"[profile]   {line}")
+    return prof
+
+
+def warm_runs(run, batches: int) -> list:
+    """Milliseconds of ``batches`` * 5 warm calls of ``run``, after two
+    warm-ups, each ending in a synchronize."""
     runs = []
     for i in range(2 + 5 * batches):
         t0 = time.perf_counter()
-        ctx.sql(sql).collect().to_pydict()
+        run()
         torch.cuda.synchronize()
         if i >= 2:
             runs.append((time.perf_counter() - t0) * 1e3)
@@ -535,7 +564,7 @@ def phase_sql(name_power: str):
             checked.append(f"{name}-inputs-{i}")
             err = max(err, k1_check(checked[-1], *args))
         del rec
-        runs = warm_runs(ctx, sql, SQL_BATCHES)
+        runs = warm_runs(lambda: ctx.sql(sql).collect().to_pydict(), SQL_BATCHES)
         syncs0 = HOST_SYNCS[0]
         base_mb = torch.cuda.memory_allocated() / 2**20
         torch.cuda.reset_peak_memory_stats()
@@ -588,6 +617,261 @@ def phase_f4(name_power: str) -> None:
         f"max rel err {rel:.3e}")
 
 
+# ---------------------------------------------------------------------------
+# phase 8: the 22 TPC-H queries over the eight tables
+# ---------------------------------------------------------------------------
+
+TPCH_CHECK_SF = 0.1
+# SF1 timing: medians of 5 runs, this many times, after two warm-ups; once
+# the SF1 loop has run TPCH_BUDGET_S seconds, TPCH_SHORT_BATCHES for the rest
+TPCH_BATCHES = 5
+TPCH_SHORT_BATCHES = 2
+TPCH_BUDGET_S = 300.0
+# the queries whose GROUP BY takes the small-domain path at SF 0.1 and SF1,
+# and so launch K1: string keys of small dictionaries (Q1's flags, Q4's
+# o_orderpriority, Q5's n_name, Q12's l_shipmode, Q22's country codes).  At
+# SF 0.01 Q15's l_suppkey spans 10 values and Q21's s_name dictionary holds
+# 100, under the domain limit of 256; at SF 0.1 they span 1,000.  The CPU
+# tests hold the port's path to the JAX package's at SF 0.01; here the card's
+# path is held to the CPU's at SF 0.1 and to this set at both scales.
+TPCH_K1_QUERIES = {1, 4, 5, 12, 22}
+TPCH_QUERIES = range(1, 23)
+TPCH_JOINLESS = {1, 6}
+TPCH_REL = 1e-12
+
+
+def tpch_rows(got: dict) -> list:
+    return list(zip(*got.values()))
+
+
+def _same(x, y) -> bool:
+    if isinstance(y, float) and isinstance(x, float):
+        return x == y or (x != x and y != y) or abs(x - y) <= TPCH_REL * abs(y)
+    return x == y
+
+
+def _row_key(row) -> tuple:
+    return tuple((v is None, f"{v:.9g}" if isinstance(v, float) else v) for v in row)
+
+
+def check_tpch(label: str, got: dict, want: list, ordered: bool, order_spec=None) -> None:
+    """Rows equal: keys, counts and decimals exactly, floats within rel
+    1e-12; in order where ``ordered``, else as multisets.  With an
+    ``order_spec`` [(column, descending)] the rows are compared as multisets
+    and must be in that order (ties among equal sort keys are the engine's)."""
+    rows = tpch_rows(got)
+    if len(rows) != len(want):
+        raise AssertionError(f"{label}: {len(rows)} rows, want {len(want)}")
+    if order_spec:
+        for i in range(1, len(rows)):
+            for col, desc in order_spec:
+                a, b = rows[i - 1][col], rows[i][col]
+                if a == b:
+                    continue
+                if (a < b) == desc:
+                    raise AssertionError(f"{label}: rows {i - 1} and {i} out of order on column {col}")
+                break
+        ordered = False
+    if not ordered:
+        rows, want = sorted(rows, key=_row_key), sorted(want, key=_row_key)
+    for i, (r, w) in enumerate(zip(rows, want)):
+        if len(r) != len(w) or not all(_same(x, y) for x, y in zip(r, w)):
+            raise AssertionError(f"{label}: row {i} {r} != {w}")
+
+
+def _dec(x) -> np.ndarray:
+    """A decimal(15,2) column of the generator as the loader stores it."""
+    return np.round(np.asarray(x) * 100).astype(np.int64)
+
+
+def _date(days: int) -> datetime.date:
+    return EPOCH + datetime.timedelta(days=int(days))
+
+
+def tpch_oracles(d: dict) -> dict:
+    """Q3, Q12 and Q18 over the generator's arrays, in numpy, as row lists.
+    The generator's keys are dense: order row i has o_orderkey 4i + 1 and
+    customer row c has c_custkey c + 1, so each join is index arithmetic."""
+    li, o, c = d["lineitem"], d["orders"], d["customer"]
+    oidx = (li["l_orderkey"] - 1) // 4  # each line's order row
+    price, disc, qty = _dec(li["l_extendedprice"]), _dec(li["l_discount"]), _dec(li["l_quantity"])
+    out = {}
+
+    cut = _days("1995-03-15")
+    building = c["c_mktsegment"] == "BUILDING"
+    order_ok = (o["o_orderdate"] < cut) & building[o["o_custkey"] - 1]
+    m = (li["l_shipdate"] > cut) & order_ok[oidx]
+    keys, sums = _grouped_int_sums(li["l_orderkey"][m], price[m] * (100 - disc[m]))
+    rows = (keys - 1) // 4
+    out[3] = [(int(k), int(s) / 10**4, _date(o["o_orderdate"][r]), int(o["o_shippriority"][r]))
+              for k, s, r in zip(keys, sums, rows)]
+
+    m = (np.isin(li["l_shipmode"], ["MAIL", "SHIP"]) & (li["l_commitdate"] < li["l_receiptdate"])
+         & (li["l_shipdate"] < li["l_commitdate"]) & (li["l_receiptdate"] >= _days("1994-01-01"))
+         & (li["l_receiptdate"] < _days("1995-01-01")))
+    high = np.isin(o["o_orderpriority"][oidx[m]], ["1-URGENT", "2-HIGH"])
+    modes = li["l_shipmode"][m]
+    out[12] = [(mode, int((high & (modes == mode)).sum()), int((~high & (modes == mode)).sum()))
+               for mode in sorted(set(modes))]
+
+    okey = li["l_orderkey"]  # lines come in order-key order
+    starts = np.flatnonzero(np.r_[True, okey[1:] != okey[:-1]])
+    sums = np.add.reduceat(qty, starts)
+    big = sums > 300 * 100
+    keys = okey[starts][big]
+    rows = (keys - 1) // 4
+    cust = o["o_custkey"][rows]
+    out[18] = [(c["c_name"][k - 1], int(k), int(ok), _date(o["o_orderdate"][r]),
+                int(p) / 100, int(s) / 100)
+               for k, ok, r, p, s in zip(cust, keys, rows, _dec(o["o_totalprice"])[rows], sums[big])]
+    return out
+
+
+# ORDER BY of the oracle-checked queries (Q18's too, though it compares as
+# a multiset in the JAX package's benchmark)
+TPCH_ORACLE_ORDER = {3: [(1, True), (2, False)], 12: [(0, False)], 18: [(4, True), (3, False)]}
+
+
+def run_recorded(ctx, q: int):
+    """One run of query q with every K1 call recorded and K1's launch count
+    read around it: (rows, launches, recorder, seconds)."""
+    rec = Recorder(stage_compiler.smalldomain_sum_count)
+    stage_compiler.smalldomain_sum_count = rec
+    try:
+        SD.smalldomain_sum_count.launches = 0
+        t0 = time.perf_counter()
+        got = run_tpch(ctx, q).to_pydict()
+        secs = time.perf_counter() - t0
+        launches = SD.smalldomain_sum_count.launches
+    finally:
+        stage_compiler.smalldomain_sum_count = rec.fn
+    if launches and not rec.calls:
+        raise AssertionError(f"Q{q}: K1 launched outside the stage compiler's call")
+    return got, launches, rec, secs
+
+
+def join_candidates(ctx, q: int) -> list:
+    """Run query q once through its physical plan and read each join's
+    candidate pairs (``join_candidates``) and type, in plan order."""
+    out = []
+    stmts = [s for s in get_query_sql(q).split(";") if s.strip()]
+    for stmt in stmts:
+        low = stmt.lower()
+        if "create view" in low or "drop view" in low:
+            ctx.sql(stmt)
+            continue
+        plan = ctx.create_physical_plan(ctx.optimize(ctx.create_logical_plan(stmt)))
+        plan.execute()
+        stack = [plan]
+        while stack:
+            node = stack.pop()
+            if isinstance(node, HashJoinExec):
+                out.append((node.join_type, node.metrics.counter("join_candidates").value))
+            stack.extend(reversed(node.children()))
+    return out
+
+
+def tpch_check(name_power: str) -> tuple:
+    """SF 0.1: every query on the card against the port on the CPU over the
+    same host arrays, with K1's path on the card held to the CPU's and K1
+    against its plain version at each call's inputs."""
+    t0 = time.perf_counter()
+    data = tpchdata.generate_tpch(TPCH_CHECK_SF, SEED)
+    cpu, gpu = ExecutionContext(device="cpu"), ExecutionContext()
+    tpchdata.register_tpch(cpu, data)
+    tpchdata.register_tpch(gpu, data)
+    log(f"[tpch] SF{TPCH_CHECK_SF}: {data['lineitem']['l_orderkey'].shape[0]} lineitem rows; "
+        f"generated and registered on the card and the CPU in {time.perf_counter() - t0:.3f} s")
+    err, checked = 0, []
+    for q in TPCH_QUERIES:
+        want, _, crec, csecs = run_recorded(cpu, q)
+        got, launches, rec, gsecs = run_recorded(gpu, q)
+        check_tpch(f"Q{q} SF{TPCH_CHECK_SF} card vs CPU", got, tpch_rows(want), q in FULLY_ORDERED)
+        if (launches > 0) != bool(crec.calls) or (launches > 0) != (q in TPCH_K1_QUERIES):
+            raise AssertionError(f"Q{q} SF{TPCH_CHECK_SF}: K1 launched {launches} times on the card; "
+                                 f"the CPU run called it {len(crec.calls)} times")
+        for i, args in enumerate(rec.calls):
+            checked.append(f"tpch-q{q}-sf{TPCH_CHECK_SF}-inputs-{i}")
+            err = max(err, k1_check(checked[-1], *args))
+        log(f"[tpch] {name_power}: Q{q} SF{TPCH_CHECK_SF} on the card equals the CPU "
+            f"({len(tpch_rows(got))} rows, {'in order' if q in FULLY_ORDERED else 'as multisets'}); "
+            f"K1 launches {launches}; cold run card {gsecs * 1e3:.3f} ms, CPU {csecs * 1e3:.3f} ms")
+    del cpu, gpu
+    torch.cuda.empty_cache()
+    return err, checked
+
+
+def phase_tpch(name_power: str):
+    """The 22 TPC-H queries: checked at SF 0.1 against the CPU, then at SF1
+    on the card: Q3, Q12 and Q18 against numpy oracles, K1's path and its
+    inputs, warm medians, a profiled run, host syncs, peak memory and each
+    join's candidates; the top device ops of the join query with the most
+    kernel time.  Returns K1's launches per query at SF1, its max abs error
+    and the names of the inputs it was checked at."""
+    err, checked = tpch_check(name_power)
+    t0 = time.perf_counter()
+    data = tpchdata.generate_tpch(SF, SEED)
+    oracles = tpch_oracles(data)
+    ctx = ExecutionContext()
+    tpchdata.register_tpch(ctx, data)
+    torch.cuda.synchronize()
+    del data
+    tables_mb = 0.0
+    for name in ctx.tables():
+        t = ctx.table(name).collect()
+        tables_mb += sum(c.data.nbytes + c.valid.nbytes for c in t.columns) / 2**20
+        del t
+    log(f"[tpch] SF{SF}: eight tables, {tables_mb:.1f} MiB of column buffers on the card; "
+        f"generated, oracles and registered in {time.perf_counter() - t0:.3f} s")
+    launches, tops = {}, {}
+    loop0 = time.perf_counter()
+    for q in TPCH_QUERIES:
+        syncs0 = HOST_SYNCS[0]
+        got, launches[q], rec, cold = run_recorded(ctx, q)
+        cold_syncs = HOST_SYNCS[0] - syncs0
+        nrows = len(tpch_rows(got))
+        if nrows == 0:
+            raise AssertionError(f"Q{q} SF{SF}: no rows")
+        if q in oracles:
+            check_tpch(f"Q{q} SF{SF} vs numpy oracle", got, oracles[q], True, TPCH_ORACLE_ORDER[q])
+        if (launches[q] > 0) != (q in TPCH_K1_QUERIES):
+            raise AssertionError(f"Q{q} SF{SF}: K1 launched {launches[q]} times")
+        for i, args in enumerate(rec.calls):
+            checked.append(f"tpch-q{q}-sf{SF:g}-inputs-{i}")
+            err = max(err, k1_check(checked[-1], *args))
+        del rec, got
+        late = time.perf_counter() - loop0 > TPCH_BUDGET_S
+        batches = TPCH_SHORT_BATCHES if late else TPCH_BATCHES
+        runs = warm_runs(lambda: run_tpch(ctx, q).to_pydict(), batches)
+        syncs0 = HOST_SYNCS[0]
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        run_tpch(ctx, q).to_pydict()
+        torch.cuda.synchronize()
+        syncs = HOST_SYNCS[0] - syncs0
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        prof = profile_run(lambda: run_tpch(ctx, q).to_pydict())
+        if q not in TPCH_JOINLESS:
+            tops[q] = prof
+        cands = join_candidates(ctx, q)
+        log(f"[tpch] {name_power}: Q{q} SF{SF} {nrows} rows"
+            f"{' (matches the numpy oracle)' if q in oracles else ''}; K1 launches {launches[q]}; "
+            f"cold run {cold * 1e3:.3f} ms, {cold_syncs} host syncs; {spread(runs)}"
+            f"{' (short: past the phase budget)' if late else ''}; runs {['%.3f' % r for r in runs]}; "
+            f"profiled run {prof['profiled_wall_ms']:.3f} ms wall, kernel time {prof['kernel_ms']:.3f} ms "
+            f"in {prof['launches']} launches, device idle share {prof['idle_share']:.1%}; host syncs per "
+            f"warm run {syncs}; peak memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the "
+            f"{base_mb:.1f} MiB allocated before the run); join candidates {cands}")
+    heavy = max(tops, key=lambda q: tops[q]["kernel_ms"])
+    log(f"[tpch] {name_power}: top device ops of Q{heavy} SF{SF}, the join query with the most "
+        f"kernel time ({tops[heavy]['kernel_ms']:.3f} ms):")
+    for line in tops[heavy]["top"]:
+        log(f"[tpch]   {line}")
+    del ctx
+    torch.cuda.empty_cache()
+    return launches, err, checked
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -609,7 +893,7 @@ def main() -> int:
     ctx, launches, args = phase_main(sql)
     err = max(err, k1_check("q1-main-path-inputs", *args))
 
-    runs = warm_runs(ctx, sql, Q1_BATCHES)
+    runs = warm_runs(lambda: ctx.sql(sql).collect().to_pydict(), Q1_BATCHES)
     log(f"[timing] {name_power}: Q1 SF{SF} {spread(runs)}; runs {['%.3f' % r for r in runs]}")
 
     profile_query(ctx, sql, "Q1", name_power)
@@ -632,7 +916,11 @@ def main() -> int:
     sql_launches, sql_err, sql_checked = phase_sql(name_power)
     err = max(err, sql_err)
     phase_f4(name_power)
-    by_path = {"q1": launches, **sql_launches}
+    tpch_launches, tpch_err, tpch_checked = phase_tpch(name_power)
+    err = max(err, tpch_err)
+    sql_checked += tpch_checked
+    by_path = {"q1": launches, **sql_launches,
+               **{f"tpch-q{q}": n for q, n in tpch_launches.items() if n}}
 
     kernels = [{
         "name": "smalldomain_sum_count",

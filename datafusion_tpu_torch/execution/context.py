@@ -279,7 +279,7 @@ class ExecutionContext:
             from ..physical.fuse import FuseStages
 
             # the reference's sort rules and shared-subtree dedup are
-            # ported with the operators they rewrite (slices 3 and 5)
+            # ported with the operators they rewrite (slice 5)
             rules = [FuseStages()]
         for rule in rules:
             phys = rule.optimize(phys)

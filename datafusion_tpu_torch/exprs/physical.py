@@ -284,6 +284,34 @@ def _lut(values: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(values)).to(device)
 
 
+# what a host function gives over a dictionary's values (a LIKE's LUT, a
+# string function's new dictionary and remap), per dictionary and function:
+# dictionaries are immutable, so each is computed once, and a derived
+# dictionary keeps one identity from run to run, which the fused tails'
+# per-input dictionary caches (``CompiledStage._out_dicts``) key on
+_DERIVED: dict = {}
+
+
+def derived(d: StringDict, key: tuple, build):
+    """``build()``, memoized on (dictionary, ``key``); ``key`` names the
+    function and its literal arguments."""
+    k = (d._id,) + key
+    hit = _DERIVED.get(k)
+    if hit is None:
+        if len(_DERIVED) > 4096:
+            _DERIVED.clear()
+        hit = _DERIVED[k] = build()
+    return hit
+
+
+def fn_key(fn) -> tuple:
+    """A host function's memo key: its code and the literal arguments it
+    closed over (a builtin is its own key)."""
+    if not hasattr(fn, "__code__"):
+        return (fn,)
+    return (fn.__code__, tuple(c.cell_contents for c in fn.__closure__ or ()))
+
+
 def harmonize_strings(a: CVec, b: CVec) -> tuple[CVec, CVec]:
     """Remap two string columns onto one merged sorted dictionary."""
     assert a.dictionary is not None and b.dictionary is not None
@@ -620,7 +648,7 @@ def _like(l: CVec, r: CVec, negated: bool) -> CVec:
     regex = _like_regex(str(pat_dict.values[0]))
     d = l.dictionary
     assert d is not None
-    lut = d.predicate_lut(lambda s: bool(regex.match(s)))
+    lut = derived(d, ("like", regex.pattern), lambda: d.predicate_lut(lambda s: bool(regex.match(s))))
     if negated:
         lut = ~lut
     if len(lut) == 0:

@@ -28,6 +28,7 @@ from ..columnar.column import Column as CVec
 from ..columnar.dictionary import StringDict
 from ..columnar.table import host_numpy
 from ..errors import PlanError
+from ..exprs.physical import derived, fn_key
 from ..ops import kernels as K
 from ..types.dtypes import (
     BOOL,
@@ -242,15 +243,16 @@ def _string_map(col: CVec, fn, out_dtype: DataType) -> CVec:
     """Apply str->str or str->scalar per distinct value, gather on device."""
     d = col.dictionary
     assert d is not None
+    key = (str(out_dtype),) + fn_key(fn)
     if out_dtype.is_string:
-        nd, remap = d.map_values(fn)
+        nd, remap = derived(d, key, lambda: d.map_values(fn))
         if len(remap) == 0:
             remap = np.zeros(1, dtype=np.int32)
         return CVec(STRING, _gather_lut(remap, col.data), col.valid, nd)
-    lut = np.array(
+    lut = derived(d, key, lambda: np.array(
         [fn(s) for s in d.values] if len(d) else [0],
         dtype=out_dtype.storage_np_dtype(),
-    )
+    ))
     return CVec(out_dtype, _gather_lut(lut, col.data), col.valid)
 
 
@@ -439,7 +441,7 @@ def dispatch_scalar(
         prefix = str(_as_host_scalar(args[1]))
         d = args[0].dictionary
         assert d is not None
-        lut = d.predicate_lut(lambda s: s.startswith(prefix))
+        lut = derived(d, ("starts_with", prefix), lambda: d.predicate_lut(lambda s: s.startswith(prefix)))
         if len(lut) == 0:
             lut = np.zeros(1, dtype=bool)
         return CVec(BOOL, _gather_lut(lut, args[0].data), args[0].valid)

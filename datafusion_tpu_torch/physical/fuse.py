@@ -1,20 +1,25 @@
 """FuseStages physical-optimizer rule: wrap maximal fusable subtrees in a
-StageExec so they execute as one fused pass over the stage's buffers.
+StageExec so they execute as one fused pass over the stage's buffers, and
+a fusable query tail above any other input (a join, a union, another
+stage) in a TailStageExec.
 
-Port of ``datafusion_tpu/physical/fuse.py``.  Stages are cached across
-queries by a structural signature (plan shape + source column dtypes,
-capacities and dictionaries).  The reference also fuses a query tail
-above a join or another non-scan input (``TailStageExec``, slice 3) and
-streams host tables in morsels (slice 6); here such a tail runs unfused.
+Port of ``datafusion_tpu/physical/fuse.py``.  Scan-rooted stages are
+cached across queries by a structural signature (plan shape + source
+column dtypes, capacities and dictionaries).  The reference's morsel
+stages over host tables (slice 6), its fused windows and its fences around
+shared subtrees (slice 5) are not ported yet.
 """
 
 from __future__ import annotations
 
 from ..columnar.table import Table
 from ..ops import kernels as K
+from ..ops.aggregate import HashAggregateExec
 from ..ops.base import ExecutionPlan
-from ..ops.basic import MemoryExec
-from .stage_compiler import CompiledStage, compilable
+from ..ops.basic import FilterExec, GlobalLimitExec, MemoryExec, ProjectionExec
+from ..ops.join import SHRINK_SYNC_MIN_CAP
+from ..ops.sort import SortExec
+from .stage_compiler import CompiledStage, compilable, node_jit_safe
 
 _STAGE_CACHE: dict = {}
 
@@ -67,6 +72,66 @@ class StageExec(ExecutionPlan):
         return f"StageExec[fused x{len(self.stage.chain)}{r}]"
 
 
+class TailStageExec(ExecutionPlan):
+    """A fusable query tail (Limit?/Sort?/Proj*/Agg?/(Filter|Proj)*) above a
+    non-fusable input: the input executes normally, then the whole tail
+    runs as one fused pass, with no per-operator compactions or count
+    syncs inside it."""
+
+    def __init__(self, chain_plan: ExecutionPlan, input_exec: ExecutionPlan, root: bool = False):
+        super().__init__()
+        self.inner = chain_plan
+        self.input_exec = input_exec
+        self.root = root
+        self.stage = CompiledStage(chain_plan, source_node=input_exec)
+
+    def schema(self):
+        return self.inner.schema()
+
+    def children(self):
+        return [self.input_exec]
+
+    def with_new_children(self, c):
+        return self
+
+    def _execute(self) -> Table:
+        # the tail's sorts and aggregates run at the input's capacity:
+        # right-size a large, sparsely filled input first (one count sync)
+        t = self.input_exec.execute().shrink_to_fit(only_if_above=SHRINK_SYNC_MIN_CAP)
+        return self.stage.execute(shrink=not self.root, src=t)
+
+    def _display_line(self):
+        r = " root" if self.root else ""
+        return f"TailStageExec[fused x{len(self.stage.chain)}{r}]"
+
+
+def _fusable_chain(plan: ExecutionPlan):
+    """Longest fusable prefix (the grammar of `compilable`, any source).
+    Returns (chain_top_to_bottom, source_below) or (None, None)."""
+    chain = []
+    node = plan
+    if isinstance(node, GlobalLimitExec):
+        chain.append(node)
+        node = node.input
+    if isinstance(node, SortExec) and node_jit_safe(node):
+        chain.append(node)
+        node = node.input
+    while isinstance(node, ProjectionExec) and node_jit_safe(node):
+        chain.append(node)
+        node = node.input
+    if (
+        isinstance(node, HashAggregateExec)
+        and node.mode in ("single", "partial")
+        and node_jit_safe(node)
+    ):
+        chain.append(node)
+        node = node.input
+    while isinstance(node, (FilterExec, ProjectionExec)) and node_jit_safe(node):
+        chain.append(node)
+        node = node.input
+    return (chain, node) if chain else (None, None)
+
+
 class FuseStages:
     name = "fuse_stages"
 
@@ -76,14 +141,16 @@ class FuseStages:
     def _opt(self, plan: ExecutionPlan, is_root: bool) -> ExecutionPlan:
         if compilable(plan) and not isinstance(plan, MemoryExec):
             return StageExec(plan, root=is_root)
-        # the reference fuses a tail above a non-scan input into a
-        # TailStageExec; until that is ported (with joins, slice 3) such a
-        # tail runs operator by operator, with the same results.  It sits
-        # above an EmptyExec (`SELECT 1 + 1`, a count folded from
-        # statistics), a UNION, an OFFSET, a stage the grammar ends below (a
-        # grouping subquery, a projection over LIMIT) or an operator whose
-        # expressions read column data on the host; joins and host tables
-        # raise in the planner
+        # tail fusion: a fusable prefix above a non-fusable input (a join,
+        # a union, an operator whose expressions read data on the host, a
+        # stage the grammar ends below) still runs as one fused pass
+        chain, below = _fusable_chain(plan)
+        if chain is not None:
+            inner = self._opt(below, False)
+            rebuilt = inner
+            for op in reversed(chain):
+                rebuilt = op.with_new_children([rebuilt])
+            return TailStageExec(rebuilt, inner, root=is_root)
         kids = plan.children()
         if not kids:
             return plan

@@ -5,8 +5,11 @@ datafusion/src/physical_plan/planner.rs, create_initial_plan :341):
 recursively maps logical nodes to physical operators, and
 create_physical_expr binds expressions to input schemas by column index.
 Nodes and expressions outside the ported slices raise PlanError naming
-the slice that ports them (joins: 3; windows, extension nodes and
-user-defined functions: 5).
+the slice that ports them (windows, extension nodes but CrossJoinAgg, and
+user-defined functions: 5).  A CrossJoinAgg node (the reference's
+FoldCrossJoinAggregate rule) is planned as the aggregate over the
+filtered cross join it folds; the reference's tiled CrossJoinAggExec
+comes with slice 5.
 
 Naming contract: a physical Table's column names are the *qualified* names
 of the producing logical node's DFSchema, so column lookup inside operators
@@ -18,6 +21,7 @@ from __future__ import annotations
 from ..errors import PlanError
 from ..logical import plan as L
 from ..logical.dfschema import DFSchema
+from ..logical.joinagg import CrossJoinAgg
 from ..logical.expr import (
     AggregateFunction,
     Alias,
@@ -43,6 +47,7 @@ from ..logical.expr import (
 from ..exprs import physical as P
 from ..ops.aggregate import HashAggregateExec, PhysAggExpr
 from ..ops.base import ExecutionPlan
+from ..ops.join import CrossJoinExec, HashJoinExec
 from ..ops.basic import (
     EmptyExec,
     ExplainExec,
@@ -121,8 +126,14 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             ]
             return SortExec(specs, input_exec)
 
-        if isinstance(plan, (L.Join, L.CrossJoin)):
-            raise _not_ported(type(plan).__name__, 3)
+        if isinstance(plan, L.Join):
+            return self._plan_join(plan)
+
+        if isinstance(plan, L.CrossJoin):
+            return CrossJoinExec(
+                self.create_physical_plan(plan.left),
+                self.create_physical_plan(plan.right),
+            )
 
         if isinstance(plan, L.Union):
             target = Schema(
@@ -190,6 +201,8 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             return ExplainExec(plan.schema().to_schema(), rows, self.device)
 
         if isinstance(plan, L.Extension):
+            if isinstance(plan.node, CrossJoinAgg):
+                return self._plan_cross_join_agg(plan.node)
             raise _not_ported(type(plan.node).__name__, 5)
 
         raise PlanError(f"cannot plan {t.__name__}")
@@ -216,15 +229,45 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
         )
         return MemoryExec(t, t.schema())
 
+    def _plan_join(self, plan: L.Join) -> ExecutionPlan:
+        left_exec = self.create_physical_plan(plan.left)
+        right_exec = self.create_physical_plan(plan.right)
+        ls = plan.left.schema()
+        rs = plan.right.schema()
+        on = [
+            (create_physical_expr(l, ls), create_physical_expr(r, rs))
+            for l, r in plan.on
+        ]
+        filt = None
+        if plan.filter is not None:
+            filt = create_physical_expr(plan.filter, ls.join(rs))
+        return HashJoinExec(left_exec, right_exec, on, plan.join_type, filt)
+
+    def _plan_cross_join_agg(self, node: CrossJoinAgg) -> ExecutionPlan:
+        """Aggregate(Filter?(CrossJoin)): the expressions bind to the joined
+        schema, as the reference's CrossJoinAggPlanner binds them."""
+        joined = node.join_schema()
+        input_exec = CrossJoinExec(
+            self.create_physical_plan(node.left), self.create_physical_plan(node.right)
+        )
+        if node.condition is not None:
+            input_exec = FilterExec(create_physical_expr(node.condition, joined), input_exec)
+        return self._aggregate_exec(
+            input_exec, joined, node.schema().fields, node.group_expr, node.aggr_expr
+        )
+
     def _plan_aggregate(self, plan: L.Aggregate) -> ExecutionPlan:
-        input_exec = self.create_physical_plan(plan.input)
-        in_schema = plan.input.schema()
-        out_fields = plan.schema().fields
+        return self._aggregate_exec(
+            self.create_physical_plan(plan.input), plan.input.schema(),
+            plan.schema().fields, plan.group_expr, plan.aggr_expr,
+        )
+
+    def _aggregate_exec(self, input_exec, in_schema, out_fields, group_expr, aggr_expr):
         group = []
-        for ge, f in zip(plan.group_expr, out_fields[: len(plan.group_expr)]):
+        for ge, f in zip(group_expr, out_fields[: len(group_expr)]):
             group.append((create_physical_expr(ge, in_schema), f.qualified_name))
         aggs = []
-        for ae, f in zip(plan.aggr_expr, out_fields[len(plan.group_expr):]):
+        for ae, f in zip(aggr_expr, out_fields[len(group_expr):]):
             e = ae.expr if isinstance(ae, Alias) else ae
             if not isinstance(e, AggregateFunction):
                 raise PlanError(f"aggregate expr expected, got {e!r}")

@@ -99,26 +99,38 @@ def _zeros(n: int, dtype, device) -> torch.Tensor:
 
 
 class CompiledStage:
-    """One fused stage over a MemoryExec source:
-    run(datas, valids, nrows) -> (datas, valids, nout)."""
+    """One fused stage: run(datas, valids, nrows) -> (datas, valids, nout).
 
-    def __init__(self, plan: ExecutionPlan):
+    The stage's source is a MemoryExec leaf (a scan-rooted stage) or any
+    subtree (``source_node``: a query tail fused above a join, a union or
+    another stage, ``TailStageExec``).  Such a dynamic stage never runs its
+    source itself: its input arrives per execution, so its output
+    dictionaries are learned per input signature, and it skips the
+    integer-key probe (each probe costs a host sync per key)."""
+
+    def __init__(self, plan: ExecutionPlan, source_node: ExecutionPlan | None = None):
         self.plan = plan
         chain = []
         node = plan
-        while not isinstance(node, MemoryExec):
+        while node is not source_node and not isinstance(node, MemoryExec):
             chain.append(node)
             node = node.children()[0]
         self.source = node
+        self.dynamic = not isinstance(node, MemoryExec)
         self.chain = list(reversed(chain))
         self.out_schema = plan.schema()
-        # output dictionaries, learned from a dry evaluation on the host
-        self.out_dicts = self._infer_dicts(self.source.execute())
-        # integer group keys that can take the small-domain path when a
-        # min/max probe of the source finds a small range: only safe when
-        # the aggregate sees source columns directly
-        self._probe_specs = self._find_probe_specs()
+        self._dict_cache: dict = {}
         self._probe_cache: dict = {}
+        if self.dynamic:
+            self.out_dicts = None
+            self._probe_specs = None
+        else:
+            # output dictionaries, learned from a dry evaluation on the host
+            self.out_dicts = self._infer_dicts(self.source.execute())
+            # integer group keys that can take the small-domain path when a
+            # min/max probe of the source finds a small range: only safe
+            # when the aggregate sees source columns directly
+            self._probe_specs = self._find_probe_specs()
 
     def _find_probe_specs(self):
         """[(group key index, source column index)] of the aggregate's
@@ -175,9 +187,9 @@ class CompiledStage:
         if len(ranges) != len(self._probe_specs):
             ranges = {}
         # the cached buffers stay referenced, so their ids cannot be reused
-        self._probe_cache[ckey] = (bufs, ranges)
         if len(self._probe_cache) > 64:
             self._probe_cache.clear()
+        self._probe_cache[ckey] = (bufs, ranges)
         return ranges or None
 
     # ------------------------------------------------------------------
@@ -186,12 +198,11 @@ class CompiledStage:
             src = self.source.execute()
         datas = tuple(c.data for c in src.columns)
         valids = tuple(c.valid for c in src.columns)
-        out_d, out_v, nout = self._run(
-            datas, valids, src.nrows_dev, base=src, int_ranges=self._probe_int_ranges(src)
-        )
+        ranges = None if self.dynamic else self._probe_int_ranges(src)
+        out_d, out_v, nout = self._run(datas, valids, src.nrows_dev, base=src, int_ranges=ranges)
         cols = [
             Column(f.dtype, d, v, dic)
-            for f, d, v, dic in zip(self.out_schema.fields, out_d, out_v, self.out_dicts)
+            for f, d, v, dic in zip(self.out_schema.fields, out_d, out_v, self._out_dicts(src))
         ]
         t = Table(self.out_schema.names(), cols, nout, device=src.device)
         if shrink:
@@ -201,6 +212,24 @@ class CompiledStage:
             if tgt < t.capacity:
                 t = t.with_capacity(tgt)
         return t
+
+    def _out_dicts(self, src: Table):
+        """The output dictionaries: fixed for a scan-rooted stage, cached
+        per input signature (column types and dictionary identities) for a
+        dynamic one.  An entry keeps its input dictionaries referenced, so
+        their ids cannot be reused while it lives."""
+        if self.out_dicts is not None:
+            return self.out_dicts
+        dicts = tuple(c.dictionary for c in src.columns)
+        sig = (tuple(str(c.dtype) for c in src.columns), tuple(id(d) for d in dicts))
+        cached = self._dict_cache.get(sig)
+        if cached is not None and all(a is b for a, b in zip(cached[0], dicts)):
+            return cached[1]
+        out = self._infer_dicts(src)
+        if len(self._dict_cache) > 64:
+            self._dict_cache.clear()
+        self._dict_cache[sig] = (dicts, out)
+        return out
 
     # ------------------------------------------------------------------
     def _table_view(self, datas, valids, base: Table) -> Table:

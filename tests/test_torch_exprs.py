@@ -122,3 +122,21 @@ def test_expression_parity(tables, expr):
     assert repr(pc.dtype) == repr(jc.dtype)
     np.testing.assert_array_equal(pc.valid[:N].numpy(), np.asarray(jc.valid)[:N])
     np.testing.assert_array_equal(pc.data[:N].numpy(), np.asarray(jc.data)[:N])
+
+
+def test_uint64_division_as_the_reference():
+    """Fault F6 belongs to the reference: ``/`` and ``%`` on a uint64
+    column give INT64 values computed on the int64 bits, in the JAX package
+    and in the port alike (for 2^63 + 5: -3074457345618258601 and -3)."""
+    u = np.array([2**63 + 5, 5, 2**64 - 1, 2**63 - 1], np.uint64)
+    jt = JTable.from_pydict({"u": u})
+    jctx, pctx = J.ExecutionContext(), D.ExecutionContext(device="cpu")
+    jctx.register_table("t", jt)
+    pctx.register_table("t", port_table(jt))
+    sql = "SELECT u / 3 AS q, u % 7 AS r FROM t"
+    want = jctx.sql(sql).collect()
+    got = pctx.sql(sql).collect()
+    assert [repr(c.dtype) for c in got.columns] == [repr(c.dtype) for c in want.columns]
+    assert got.to_pydict() == want.to_pydict()
+    assert got.to_pydict()["q"][0] == -3074457345618258601
+    assert got.to_pydict()["r"][0] == -3

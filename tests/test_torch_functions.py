@@ -216,8 +216,8 @@ def test_convert_tz_literal_and_column_shift():
     "sql,slice_no",
     [
         ("SELECT a, row_number() OVER (ORDER BY a) r FROM t", 5),
-        ("SELECT x.a FROM t x JOIN t y ON x.a = y.a", 3),
-        ("SELECT x.a FROM t x, t y", 3),
+        ("SELECT a, sum(a) OVER (PARTITION BY a) s FROM t", 5),
+        ("CREATE EXTERNAL TABLE f (a BIGINT) STORED AS CSV LOCATION 'f.csv'", 6),
     ],
 )
 def test_deferred_work_names_its_slice(sql, slice_no):
@@ -225,3 +225,44 @@ def test_deferred_work_names_its_slice(sql, slice_no):
     ctx.register_table("t", D.Table.from_pydict({"a": [1, 2, 3]}, device="cpu"))
     with pytest.raises(Exception, match=f"slice {slice_no}"):
         ctx.sql(sql).collect()
+
+
+def test_joins_and_cross_joins_run():
+    """Joins and cross joins, deferred until the join slice, now run."""
+    ctx = D.ExecutionContext(device="cpu")
+    ctx.register_table("t", D.Table.from_pydict({"a": [1, 2, 3]}, device="cpu"))
+    got = ctx.sql("SELECT x.a FROM t x JOIN t y ON x.a = y.a").collect().to_pydict()
+    assert got == {"a": [1, 2, 3]}
+    got = ctx.sql("SELECT x.a FROM t x, t y").collect().to_pydict()
+    assert got == {"a": [1, 1, 1, 2, 2, 2, 3, 3, 3]}
+
+
+def test_string_results_keep_one_dictionary_across_runs():
+    """What a string function or LIKE derives from a dictionary is computed
+    once per dictionary and literal arguments: a second run gets the same
+    output dictionary object (fused tails cache their output dictionaries
+    by identity), and other arguments get their own."""
+    ctx = D.ExecutionContext(device="cpu")
+    ctx.register_table("t", D.Table.from_pydict({"s": ["apple", "kiwi", None, "fig"]}, device="cpu"))
+    a = ctx.sql("SELECT substr(s, 1, 2) AS x FROM t").collect()
+    b = ctx.sql("SELECT substr(s, 1, 2) AS x FROM t").collect()
+    c = ctx.sql("SELECT substr(s, 2, 2) AS y FROM t").collect()
+    assert a.columns[0].dictionary is b.columns[0].dictionary
+    assert a.to_pydict() == {"x": ["ap", "ki", None, "fi"]}
+    assert c.to_pydict() == {"y": ["pp", "iw", None, "ig"]}
+    got = [ctx.sql(f"SELECT s LIKE '{p}' AS m{i % 2} FROM t").collect().to_pydict()[f"m{i % 2}"]
+           for i, p in enumerate(("%i%", "k%", "%i%"))]
+    assert got == [[False, True, None, True], [False, True, None, False], [False, True, None, True]]
+
+
+def test_stage_cache_keys_on_the_plan_display_as_the_reference():
+    """Fault F8 of the reference, kept: the fused-stage cache keys on the
+    plan's display, where a projection shows its output names only, so a
+    second query that differs only in a projected literal reuses the first
+    one's stage and returns its rows, in the JAX package and in the port."""
+    jt = JTable.from_pydict({"i": [1, 2, 3, 4]})
+    out = []
+    for ctx in (J.ExecutionContext(), D.ExecutionContext(device="cpu")):
+        ctx.register_table("t", jt if isinstance(ctx, J.ExecutionContext) else port_table(jt))
+        out.append([ctx.sql(f"SELECT i + {k} AS f8 FROM t").collect().to_pydict()["f8"] for k in (7, 8)])
+    assert out[1] == out[0] == [[8, 9, 10, 11], [8, 9, 10, 11]]

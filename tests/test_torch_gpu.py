@@ -238,3 +238,76 @@ def test_edge_tables_on_card_match_cpu(cuda, table):
     gpu.register_table("t", Table.from_pydict(EDGE_TABLES[table]))
     for sql in sqls:
         assert gpu.sql(sql).collect().to_pydict() == cpu.sql(sql).collect().to_pydict(), sql
+
+
+def _join_sides(edge, device):
+    from datafusion_tpu_torch import Table
+    from datafusion_tpu_torch.ops.basic import MemoryExec
+    from datafusion_tpu_torch.types.dtypes import STRING
+
+    from torch_join_cases import EDGE_SIDES
+
+    execs = []
+    for data in EDGE_SIDES[edge]:
+        t = Table.from_pydict(data, dtypes={"rv": STRING} if "rv" in data else None, device=device)
+        execs.append(MemoryExec(t, t.schema()))
+    return execs
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("edge", ["null-keys", "empty-build", "empty-probe", "fan-out"])
+def test_join_edge_tables_on_card_match_cpu(cuda, edge):
+    """Every join type on the join edge tables of test_torch_joins.py: NULL
+    keys, an empty side, fan-out; rows in order equal the CPU's."""
+    from datafusion_tpu_torch.exprs.physical import PhysCol
+    from datafusion_tpu_torch.ops.join import HashJoinExec
+
+    from torch_join_cases import JOIN_TYPES
+
+    for jt in JOIN_TYPES:
+        out = []
+        for device in ("cpu", None):
+            left, right = _join_sides(edge, device)
+            lk, rk = (PhysCol(n, 0, s.schema().fields[0].dtype) for n, s in (("k", left), ("k2", right)))
+            out.append(HashJoinExec(left, right, [(lk, rk)], jt).execute().to_pydict())
+        assert out[1] == out[0], (edge, jt)
+
+
+JOIN_SQL_ON_CARD = [
+    "SELECT v, s, w, s2 FROM a JOIN b ON s = s2",
+    "SELECT v, s, w, s2 FROM a FULL JOIN b ON s = s2",
+    "SELECT v, w, u FROM a JOIN b ON u = u2",
+    "SELECT v, w FROM a LEFT JOIN b ON x = y",
+    "SELECT v, w FROM a RIGHT JOIN b ON u = u2 AND v < w",
+    "SELECT v FROM a WHERE EXISTS (SELECT 1 FROM b WHERE b.s2 = a.s AND b.w > a.v)",
+    "SELECT v FROM a WHERE s NOT IN (SELECT s2 FROM b WHERE s2 IS NOT NULL)",
+    "SELECT v, w FROM a, b WHERE x <= y AND x >= y ORDER BY v, w",
+    "SELECT w FROM b WHERE w > (SELECT avg(v) FROM a) ORDER BY w",
+]
+
+
+def _join_sql_tables(device):
+    from datafusion_tpu_torch import Table
+
+    u = np.array([0, 5, 2**63, 2**63 + 5, 2**64 - 1, 2**63 - 1], np.uint64)
+    a = {"s": ["apple", "kiwi", "fig", None, "kiwi", "plum"], "v": [1, 2, 3, 4, 5, 6],
+         "u": u, "x": [0.0, -0.0, 1.5, float("nan"), 2.0, None]}
+    b = {"s2": ["kiwi", "fig", "date", "kiwi", None, "fig"], "w": [10, 20, 30, 40, 50, 0],
+         "u2": u[::-1].copy(), "y": [-0.0, 0.0, 1.5, float("nan"), 2.0, 2.0]}
+    return Table.from_pydict(a, device=device), Table.from_pydict(b, device=device)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("sql", JOIN_SQL_ON_CARD, ids=[f"j{i}" for i in range(len(JOIN_SQL_ON_CARD))])
+def test_join_queries_on_card_match_cpu(cuda, sql):
+    """String keys from two dictionaries, uint64 keys above 2^63, float keys
+    with -0.0 and NaN (F7: hashed by their float32 bits on both devices),
+    a residual filter, semi and null-aware anti joins, a cross join and a
+    scalar subquery: rows in order equal the CPU's."""
+    out = []
+    for device in ("cpu", None):
+        ctx = ExecutionContext(device=device)
+        for name, t in zip("ab", _join_sql_tables(device)):
+            ctx.register_table(name, t)
+        out.append(ctx.sql(sql).collect().to_pydict())
+    assert out[1] == out[0], sql

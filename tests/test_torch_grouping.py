@@ -34,48 +34,15 @@ import datafusion_tpu_torch.physical.fuse as pfuse
 import datafusion_tpu_torch.physical.stage_compiler as psc
 from datafusion_tpu_torch.queries import NAMED_QUERIES, get_named_query
 
-from torch_parity import port_table
-
-REL = 1e-12
-
-
-def _same(x, y, tolerant: bool) -> bool:
-    if x is None or y is None:
-        return x is None and y is None
-    if isinstance(y, float):
-        if math.isnan(y):
-            return isinstance(x, float) and math.isnan(x)
-        if tolerant:
-            return abs(x - y) <= REL * max(abs(y), 1.0)
-        return x == y and math.copysign(1.0, x) == math.copysign(1.0, y)
-    return x == y
-
-
-def assert_rows_equal(got: dict, want: dict, float_cols=()) -> None:
-    assert list(got) == list(want)
-    for k in want:
-        assert len(got[k]) == len(want[k]), k
-        for x, y in zip(got[k], want[k]):
-            assert _same(x, y, k in float_cols), (k, x, y)
-
-
-class _Recorder:
-    def __init__(self, fn):
-        self.fn = fn
-        self.calls = 0
-
-    def __call__(self, *args, **kw):
-        self.calls += 1
-        return self.fn(*args, **kw)
-
+from torch_parity import Recorder, assert_rows_equal, port_table
 
 def run_both(jtable, ptable, sql, monkeypatch):
     """(port rows, JAX rows, JAX took the small-domain path, the port did,
     the port's K1 calls) for one query on fresh contexts and stage caches,
     so that the JAX package traces its stage anew."""
-    jrec = _Recorder(jsc._fused_small_domain_aggregate)
-    prec = _Recorder(psc._fused_small_domain_aggregate)
-    k1 = _Recorder(psc.smalldomain_sum_count)
+    jrec = Recorder(jsc._fused_small_domain_aggregate)
+    prec = Recorder(psc._fused_small_domain_aggregate)
+    k1 = Recorder(psc.smalldomain_sum_count)
     monkeypatch.setattr(jsc, "_fused_small_domain_aggregate", jrec)
     monkeypatch.setattr(psc, "_fused_small_domain_aggregate", prec)
     monkeypatch.setattr(psc, "smalldomain_sum_count", k1)

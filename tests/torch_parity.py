@@ -4,6 +4,8 @@ both engines run on identical inputs."""
 
 from __future__ import annotations
 
+import math
+
 import numpy as np
 
 from datafusion_tpu_torch.columnar.convert import table_from_host
@@ -50,3 +52,42 @@ def assert_pydict_parity(got: dict, want: dict, rel: float = 0.0, float_cols=Non
                     assert abs(x - y) <= rel * max(abs(y), 1.0), (k, x, y)
         else:
             assert g == w, (k, g, w)
+
+
+REL = 1e-12
+
+
+def _same(x, y, tolerant: bool) -> bool:
+    if x is None or y is None:
+        return x is None and y is None
+    if isinstance(y, float):
+        if math.isnan(y):
+            return isinstance(x, float) and math.isnan(x)
+        if tolerant:
+            return abs(x - y) <= REL * max(abs(y), 1.0)
+        return x == y and math.copysign(1.0, x) == math.copysign(1.0, y)
+    return x == y
+
+
+def assert_rows_equal(got: dict, want: dict, float_cols=()) -> None:
+    """Equal columns and rows, in order.  Values are exactly equal (NaN
+    equal to NaN, -0.0 told from 0.0) but in ``float_cols``, which may
+    differ by rel 1e-12 relative to max(|want|, 1)."""
+    assert list(got) == list(want)
+    for k in want:
+        assert len(got[k]) == len(want[k]), k
+        for x, y in zip(got[k], want[k]):
+            assert _same(x, y, k in float_cols), (k, x, y)
+
+
+class Recorder:
+    """Wraps a function and counts its calls (for monkeypatching a module's
+    function to learn which path a query took)."""
+
+    def __init__(self, fn):
+        self.fn = fn
+        self.calls = 0
+
+    def __call__(self, *args, **kw):
+        self.calls += 1
+        return self.fn(*args, **kw)
