@@ -12,25 +12,40 @@ Phases (each raises, and the script exits non-zero, on failure):
                at the main path's shapes and at edge cases (K1_CASES of
                datafusion_tpu_torch/ops/smalldomain_cases.py); exact
   4. main    - TPC-H Q1 at SF1 through ExecutionContext().sql(q1).collect(),
-               checked against an independent numpy oracle, with every
-               kernel's launch count read around the run; then K1 at the
-               main path's own inputs, exact
-  5. timing  - printed, never asserted: Q1 warm medians of 5 runs, five
-               times over, and their spread; a profile of one warm Q1;
+               four times: the cold run (node by node, learning
+               capacities), the check (the speculative path with host
+               reads refused), the capture of one CUDA graph with its
+               first replay, and one replay under torch.profiler (printed
+               with its top device ops); each against an independent numpy
+               oracle.  K1's launches: the wrapper's count read around the
+               four runs, plus the launches of K1 the profiler saw in the
+               last replay, which must equal the calls the capture
+               recorded; then K1 at the cold run's inputs and at the
+               captured graph's, exact
+               (datafusion_tpu_torch/physical/query_compiler.py)
+  5. timing  - printed, never asserted: Q1 warm medians of 5 runs (graph
+               replays), five times over, and their spread;
                each kernel's device time alone (torch.profiler, per launch
                over many launches) and around its wrapper (CUDA events),
                beside its byte bound, its plain version and the one-call
                PyTorch yardstick; K1 alone at a few other shapes
   6. sql     - the lineitem-only queries of datafusion_tpu_torch/queries
-               (NAMED_QUERIES) at SF1 on the ten-column lineitem, each
-               checked against a numpy oracle (keys, counts and decimal
-               sums exact, floats rel 1e-12) and its path asserted from
+               (NAMED_QUERIES) at SF1 on the ten-column lineitem: the cold
+               run, the check and the graph's replay each against a numpy
+               oracle (keys, counts and decimal sums exact, floats rel
+               1e-12); the plans the port on the CPU makes one unit (its
+               CPU twins, at SF 0.1) must capture a graph; the path from
                K1's launch count (only `linenumber` takes the small-domain
-               path); K1 against its plain version, exact, at the inputs
-               each query's run handed it; per query, printed: warm medians of 5 runs, five
-               times over, kernel time and device idle share of one
-               profiled run, host syncs per run and peak device memory;
-               the top device ops of q18_bigorders
+               path); K1 against its plain version, exact, at the inputs of
+               the cold run and of the capture; per query, printed: whether
+               a graph was captured or which node read the host, warm
+               medians of three paths in turns (graph replays; eager, with
+               DFTPU_NO_WHOLE_QUERY set; exact, speculation off), kernel
+               time and device idle share of one profiled replay (K1's
+               launches in it must equal the capture's calls) and of one
+               eager run, host syncs per warm run, the graph's growth of
+               the shared graph pool and peak device memory; the top device
+               ops of an eager q18_bigorders; the memory the pool holds
   7. f4      - the card's float64 sqrt against numpy's over 10^6 values,
                and a grouped stddev against the numpy oracle
   8. tpch    - the 22 TPC-H queries over the eight tables of
@@ -38,21 +53,30 @@ Phases (each raises, and the script exits non-zero, on failure):
                each query's rows on the card equal the port's on the CPU
                over the same host arrays (keys, counts and decimals exact,
                floats rel 1e-12; in order where FULLY_ORDERED says so, else
-               as multisets), and K1 is launched by exactly the queries whose
-               CPU run calls it (TPCH_K1_QUERIES); at SF1 Q3, Q12 and Q18
-               match numpy oracles, K1's path is asserted again, and per
-               query it prints warm medians of 5 runs five times over (two
-               once the loop has run TPCH_BUDGET_S seconds), kernel time,
-               launches and idle share of one profiled run, host syncs per
-               run, peak memory and each join's candidate pairs; then the
-               top device ops of the join query with the most kernel time.
-               K1 is held against its plain version at every call's inputs
+               as multisets) in the cold run and three warm runs, K1 is
+               launched by exactly the queries whose CPU run calls it
+               (TPCH_K1_QUERIES), and the card captures a graph exactly
+               where the CPU twin becomes one unit; at SF1, per query, the
+               cold run, the check and the replay (the replay equal to the
+               check's rows; Q3, Q12 and Q18 against numpy oracles), K1's
+               path in the cold run and in the replay, and as in the sql
+               phase: graph or guard message, warm medians of the three
+               paths in turns (two rounds instead of four once the loop has
+               run TPCH_BUDGET_S seconds), profiled replay and eager run,
+               host syncs per warm run, pool and peak memory, each join's
+               candidate pairs; then the memory the shared graph pool holds
+               with every graph, and after a table is registered again
+               (which releases the cached plans' graphs); then the top
+               device ops of an eager run of the join query with the most
+               kernel time.  K1 is held against its plain version at every
+               call's inputs, captured ones included
 The last two lines are the kernels JSON line and the ok JSON line.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import datetime
 import json
 import os
@@ -69,9 +93,11 @@ import torch
 from datafusion_tpu_torch import ExecutionContext, tpchdata
 from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
 from datafusion_tpu_torch.columnar.table import HOST_SYNCS
+from datafusion_tpu_torch.ops import kernels as K
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.ops.join import HashJoinExec
 from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
+from datafusion_tpu_torch.physical import query_compiler as QC
 from datafusion_tpu_torch.physical import stage_compiler
 from datafusion_tpu_torch.q1data import (
     LINESTATUSES,
@@ -93,7 +119,8 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 SF = 1.0
 SEED = 7
 Q1_BATCHES = 5  # Q1 warm timing: this many medians of 5 runs, after two warm-ups
-SQL_BATCHES = 5  # the same for each query of the sql phase
+SQL_BATCHES = 4  # sql phase: rounds of 5 runs per path (graph, eager, exact)
+TWIN_SF = 0.1  # the scale of the CPU twins that say which plans must capture
 Q1_SHIPDATE_MAX = int(np.datetime64("1998-09-02", "D").astype(np.int64))
 EPOCH = datetime.date(1970, 1, 1)
 
@@ -255,7 +282,122 @@ class Recorder:
         return self.fn(gid, cols, masks, domain)
 
 
-def phase_main(sql: str):
+def whole_query(ctx):
+    """The whole-query state of the plan ``ctx`` ran last
+    (physical/query_compiler.py), or None."""
+    plans = ctx._plan_cache
+    return getattr(plans[list(plans)[-1]], "_whole_query", None) if plans else None
+
+
+def graph_state(wq) -> str:
+    if wq is None:
+        return "no whole-query state"
+    if wq.graph is not None:
+        return (f"CUDA graph captured, the shared pool grew by {wq.pool_growth / 2**20:.1f} MiB in its "
+                f"capture and holds {QC.pool_bytes(wq.device) / 2**20:.1f} MiB")
+    if wq.failure is None:
+        return "not captured"
+    return f"not captured ({wq.failure[0]}: {wq.failure[1]})"
+
+
+def graphs_held(ctx) -> str:
+    """The shared pool of the CUDA graphs of ``ctx``'s cached plans, beside
+    the sum of what each capture grew it by (what pools of their own would
+    have held at least)."""
+    wqs = [getattr(p, "_whole_query", None) for p in ctx._plan_cache.values()]
+    wqs = [w for w in wqs if w is not None and w.graph is not None]
+    grown = sum(w.pool_growth for w in wqs)
+    return (f"{len(wqs)} graphs held; their shared pool holds "
+            f"{QC.pool_bytes(ctx.device) / 2**20:.1f} MiB; their captures grew it by "
+            f"{grown / 2**20:.1f} MiB in all")
+
+
+def require_capture(label: str, wq) -> None:
+    """A plan the CPU twin makes one unit must capture a graph; a failure
+    other than the guard's fails the script either way."""
+    if wq is not None and wq.failure is not None and wq.failure[0] != "guard":
+        raise AssertionError(f"{label}: the whole-query build failed outside the guard: {wq.failure}")
+    if wq is None or wq.graph is None:
+        raise AssertionError(f"{label}: the CPU twin becomes one unit, the card captured no graph "
+                             f"({graph_state(wq)})")
+
+
+@contextlib.contextmanager
+def path(variant: str):
+    """Run the context's collects as ``graph`` (the default: warm plans
+    replay a CUDA graph), ``eager`` (DFTPU_NO_WHOLE_QUERY set: the
+    speculative path node by node) or ``exact`` (speculation off: the exact
+    path with its host reads)."""
+    if variant == "eager":
+        os.environ["DFTPU_NO_WHOLE_QUERY"] = "1"
+    elif variant == "exact":
+        K.SPECULATION.enabled = False
+    try:
+        yield
+    finally:
+        os.environ.pop("DFTPU_NO_WHOLE_QUERY", None)
+        K.SPECULATION.enabled = True
+
+
+PATHS = ("graph", "eager", "exact")
+
+
+def warm_paths(run, batches: int) -> dict:
+    """Milliseconds of warm calls of ``run`` on each path: ``batches``
+    rounds, each a batch of 5 runs (after one untimed run) per path, the
+    paths in turns (forward, then backward) so that drift of the host's
+    speed hits them alike; every run ends in a synchronize."""
+    runs = {p: [] for p in PATHS}
+    for b in range(batches):
+        for p in PATHS if b % 2 == 0 else PATHS[::-1]:
+            with path(p):
+                for i in range(6):
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    if i:
+                        runs[p].append((time.perf_counter() - t0) * 1e3)
+    return runs
+
+
+def medians(runs: dict) -> str:
+    return "; ".join(f"{p} {statistics.median(r):.3f} ms (5-run medians "
+                     f"{['%.3f' % statistics.median(r[i:i + 5]) for i in range(0, len(r), 5)]})"
+                     for p, r in runs.items())
+
+
+def warm_syncs(run_collect, decode) -> tuple:
+    """Host syncs of one warm collect, and of decoding its result."""
+    s0 = HOST_SYNCS[0]
+    out = run_collect()
+    s1 = HOST_SYNCS[0]
+    decode(out)
+    return s1 - s0, HOST_SYNCS[0] - s1
+
+
+def decode_ms(run_collect) -> float:
+    """Median milliseconds of ``to_pydict()`` over one collected result
+    (its row count read first): the host's share of a warm run that no
+    graph removes."""
+    t = run_collect()
+    torch.cuda.synchronize()
+    t.nrows
+    times = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        t.to_pydict()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def phase_main(sql: str, name_power: str):
+    """Q1 through collect(): the cold run (node by node, learning), the
+    check (the speculative path, guarded), the capture of its CUDA graph
+    with one replay, and one more replay under torch.profiler; every run
+    against the numpy oracle.  K1's launches: the wrapper's count around
+    all four (the cold run and the check launch it; a capture records
+    it), plus the launches the profiler saw in the last replay, which must
+    equal what the capture recorded."""
     t0 = time.perf_counter()
     table = generate_lineitem_q1(SF, SEED)  # on the card
     ctx = ExecutionContext()  # device=None: the CUDA card
@@ -263,22 +405,45 @@ def phase_main(sql: str):
     torch.cuda.synchronize()
     log(f"[main] lineitem SF{SF}: {table.nrows} rows, capacity {table.capacity}, "
         f"set-up {time.perf_counter() - t0:.3f} s")
+    want = q1_oracle(lineitem_q1_arrays(SF, SEED))
     rec = Recorder(stage_compiler.smalldomain_sum_count)
     stage_compiler.smalldomain_sum_count = rec
+    times, rows, per_run = [], [], []
     try:
         SD.smalldomain_sum_count.launches = 0
-        t0 = time.perf_counter()
-        got = ctx.sql(sql).collect().to_pydict()
-        cold = time.perf_counter() - t0
-        launches = SD.smalldomain_sum_count.launches
+        for _ in range(3):
+            before = SD.smalldomain_sum_count.launches
+            t0 = time.perf_counter()
+            rows.append(ctx.sql(sql).collect().to_pydict())
+            times.append((time.perf_counter() - t0) * 1e3)
+            per_run.append(SD.smalldomain_sum_count.launches - before)
+        got = {}
+        prof = profiled_replay(lambda: got.update(ctx.sql(sql).collect().to_pydict()), "Q1",
+                               len(rec.calls) - sum(per_run))
+        rows.append(got)
+        launches = SD.smalldomain_sum_count.launches + prof["k1_launches"]
     finally:
         stage_compiler.smalldomain_sum_count = rec.fn
-    if launches < 1:
-        raise AssertionError("Q1 did not launch smalldomain_sum_count")
-    check_q1(got, q1_oracle(lineitem_q1_arrays(SF, SEED)))
-    log(f"[main] Q1 SF{SF} matches the numpy oracle (exact sums/counts, avgs rel 1e-12); "
-        f"smalldomain_sum_count launches={launches}; cold run {cold * 1e3:.3f} ms")
-    return ctx, launches, rec.args
+    for got in rows:
+        check_q1(got, want)
+    wq = whole_query(ctx)
+    require_capture("Q1", wq)
+    if per_run != [1, 1, 0] or len(rec.calls) != 3 or prof["k1_launches"] != 1:
+        raise AssertionError(f"Q1: K1 launches per run {per_run} (cold, check, capture), "
+                             f"{len(rec.calls)} calls, {prof['k1_launches']} in the profiled "
+                             f"replay; want 1, 1, 0, three calls (one recorded) and 1")
+    log(f"[main] Q1 SF{SF}: the cold run, the check, the captured graph's replay and one more "
+        f"replay match the numpy oracle (exact sums/counts, avgs rel 1e-12); {graph_state(wq)}; "
+        f"smalldomain_sum_count launches={launches}: {per_run[0]} in the cold run, {per_run[1]} in "
+        f"the check, {len(rec.calls) - sum(per_run)} recorded by the capture, "
+        f"{prof['k1_launches']} run by the profiled replay (the capture's own replay is not "
+        f"counted); runs {['%.3f' % t for t in times]} ms")
+    log(f"[profile] {name_power}: one warm Q1 replay (profiled) {prof['profiled_wall_ms']:.3f} ms wall, "
+        f"{prof['kernel_ms']:.3f} ms kernel time in {prof['launches']} launches, device idle share "
+        f"{prof['idle_share']:.1%}")
+    for line in prof["top"]:
+        log(f"[profile]   {line}")
+    return ctx, launches, rec.calls[0], rec.calls[2]
 
 
 # ---------------------------------------------------------------------------
@@ -371,7 +536,33 @@ def profile_run(run, top: int = 15) -> dict:
              for e in ops[:top] if e.self_device_time_total > 0]
     lines.append(f"{len(kernels)} distinct kernels, {sum(e.count for e in kernels)} launches")
     return {"profiled_wall_ms": wall, "kernel_ms": busy, "idle_share": 1 - busy / wall,
-            "launches": sum(e.count for e in kernels), "top": lines}
+            "launches": sum(e.count for e in kernels), "top": lines,
+            "kernel_counts": {e.key: e.count for e in kernels}}
+
+
+K1_KERNEL = "smalldomain_sum_count_kernel"
+
+
+def profiled_replay(run, label: str, recorded: int, tries: int = 3) -> dict:
+    """One warm call of ``run`` (a replay of a captured graph) under
+    torch.profiler (``profile_run``), with K1's launches counted among the
+    kernels the card ran: they must equal the ``recorded`` K1 calls of the
+    capture.  The profiler may drop a kernel record, so a replay that shows
+    fewer is profiled again, up to ``tries`` times; one that shows more
+    fails at once.  The dict gains ``k1_launches``."""
+    for _ in range(tries):
+        prof = profile_run(run)
+        seen = sum(n for k, n in prof["kernel_counts"].items() if K1_KERNEL in k)
+        if seen > recorded:
+            raise AssertionError(f"{label}: the replay ran K1 {seen} times, the capture recorded "
+                                 f"{recorded} calls")
+        if seen == recorded:
+            prof["k1_launches"] = seen
+            return prof
+        log(f"[profile] {label}: the profiler kept {seen} of the {recorded} K1 launches the graph "
+            f"holds; profiling again")
+    raise AssertionError(f"{label}: K1 ran {seen} times in each of {tries} profiled replays, the "
+                         f"capture recorded {recorded} calls")
 
 
 def profile_query(ctx, sql: str, label: str, name_power: str, top: int = 12) -> dict:
@@ -523,12 +714,30 @@ def check_rows(name: str, got: dict, want: dict, float_cols=()) -> None:
 SQL_K1_QUERIES = {"linenumber"}
 
 
+def sql_twins() -> dict:
+    """Which named queries the port on the CPU makes one unit (three
+    collects over the lineitem at SF 0.1): the card must capture those."""
+    ctx = ExecutionContext(device="cpu")
+    ctx.register_table("lineitem", generate_lineitem(TWIN_SF, SEED, device="cpu"))
+    out = {}
+    for name in NAMED_QUERIES:
+        for _ in range(3):
+            ctx.sql(get_named_query(name)).collect()
+        out[name] = whole_query(ctx).is_program
+    return out
+
+
 def phase_sql(name_power: str):
-    """The named queries on the card at SF1: oracle, path, K1 against its
-    plain version at the inputs each query hands it, timing, profile, host
-    syncs and peak memory; returns K1's launches per query, its max abs
-    error there and the names of the inputs it was checked at."""
+    """The named queries on the card at SF1: the cold run, the check and
+    the captured graph's replay against the oracle; the path from K1's
+    launch count; K1 against its plain version at the inputs the cold run
+    and the capture handed it; warm medians of the three paths (graph,
+    eager, exact) in turns; one profiled replay (kernel time, idle share,
+    K1 inside it); host syncs per warm run; the graph's pool and peak
+    memory.  Returns K1's launches per query (the three runs), its max abs
+    error and the names of the inputs it was checked at."""
     t0 = time.perf_counter()
+    twins = sql_twins()
     arrays = lineitem_arrays(SF, SEED)
     want = sql_oracles(arrays)
     table = generate_lineitem(SF, SEED)  # on the card
@@ -537,48 +746,69 @@ def phase_sql(name_power: str):
     torch.cuda.synchronize()
     table_mb = sum(c.data.nbytes + c.valid.nbytes for c in table.columns) / 2**20
     log(f"[sql] lineitem SF{SF}: {table.nrows} rows x {len(table.columns)} columns, capacity "
-        f"{table.capacity}, {table_mb:.1f} MiB on the card; oracles and set-up "
-        f"{time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
-        f"allocated in all")
+        f"{table.capacity}, {table_mb:.1f} MiB on the card; CPU twins at SF{TWIN_SF}, oracles and "
+        f"set-up {time.perf_counter() - t0:.3f} s; {torch.cuda.memory_allocated() / 2**20:.1f} MiB "
+        f"allocated in all; one unit on the CPU: {[n for n, p in twins.items() if p]}")
     launches, err, checked = {}, 0, []
     for name in NAMED_QUERIES:
         sql = get_named_query(name)
         rec = Recorder(stage_compiler.smalldomain_sum_count)
         stage_compiler.smalldomain_sum_count = rec
+        per_run, rows, secs, calls = [], [], [], []
         try:
             SD.smalldomain_sum_count.launches = 0
-            t0 = time.perf_counter()
-            got = ctx.sql(sql).collect().to_pydict()
-            cold = (time.perf_counter() - t0) * 1e3
+            for _ in range(3):  # cold, check, capture + replay
+                before, ncalls = SD.smalldomain_sum_count.launches, len(rec.calls)
+                t0 = time.perf_counter()
+                rows.append(ctx.sql(sql).collect().to_pydict())
+                secs.append((time.perf_counter() - t0) * 1e3)
+                per_run.append(SD.smalldomain_sum_count.launches - before)
+                calls.append(rec.calls[ncalls:])
             launches[name] = SD.smalldomain_sum_count.launches
         finally:
             stage_compiler.smalldomain_sum_count = rec.fn
-        check_rows(name, got, want[name], SQL_FLOAT_COLS)
-        if (launches[name] > 0) != (name in SQL_K1_QUERIES):
-            raise AssertionError(f"{name}: K1 launched {launches[name]} times; the "
-                                 f"{'small-domain' if name in SQL_K1_QUERIES else 'sort'} "
-                                 f"path should launch it {'at least once' if name in SQL_K1_QUERIES else 'never'}")
-        if launches[name] and not rec.calls:
-            raise AssertionError(f"{name}: K1 launched outside the stage compiler's call")
-        for i, args in enumerate(rec.calls):  # the launches counted above
-            checked.append(f"{name}-inputs-{i}")
-            err = max(err, k1_check(checked[-1], *args))
-        del rec
-        runs = warm_runs(lambda: ctx.sql(sql).collect().to_pydict(), SQL_BATCHES)
-        syncs0 = HOST_SYNCS[0]
+        for got in rows:
+            check_rows(name, got, want[name], SQL_FLOAT_COLS)
+        wq = whole_query(ctx)
+        if twins[name]:
+            require_capture(name, wq)
+        k1 = name in SQL_K1_QUERIES
+        recorded = len(calls[2]) - per_run[2]  # the capture's calls, not launches
+        if any((n > 0) != k1 for n in (per_run[0], per_run[1], recorded)) or per_run[2]:
+            raise AssertionError(f"{name}: K1 launched {per_run} times (cold, check, capture), "
+                                 f"{recorded} calls recorded by the capture; the "
+                                 f"{'small-domain' if k1 else 'sort'} path should call it "
+                                 f"{'once in each' if k1 else 'never'}, the capture launch none")
+        for label, run_calls in (("inputs", calls[0]), ("captured-inputs", calls[2])):
+            for i, args in enumerate(run_calls):
+                checked.append(f"{name}-{label}-{i}")
+                err = max(err, k1_check(checked[-1], *args))
+        del rec, calls
+        runs = warm_paths(lambda: ctx.sql(sql).collect().to_pydict(), SQL_BATCHES)
+        syncs = warm_syncs(lambda: ctx.sql(sql).collect(), lambda t: t.to_pydict())
+        dec = decode_ms(lambda: ctx.sql(sql).collect())
         base_mb = torch.cuda.memory_allocated() / 2**20
         torch.cuda.reset_peak_memory_stats()
         ctx.sql(sql).collect().to_pydict()
         torch.cuda.synchronize()
-        syncs = HOST_SYNCS[0] - syncs0
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        prof = profile_query(ctx, sql, name, name_power, top=12 if name == "q18_bigorders" else 0)
-        log(f"[sql] {name_power}: {name} SF{SF} matches the numpy oracle ({len(got[next(iter(got))])} "
-            f"rows); K1 launches {launches[name]}; cold run {cold:.3f} ms; {spread(runs)}; "
-            f"runs {['%.3f' % r for r in runs]}; profiled run: kernel time {prof['kernel_ms']:.3f} ms "
-            f"in {prof['launches']} launches, device idle share {prof['idle_share']:.1%}; host syncs "
-            f"per run {syncs}; peak memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the "
-            f"{base_mb:.1f} MiB allocated before the run, the table's {table_mb:.1f} MiB among them)")
+        prof = profiled_replay(lambda: ctx.sql(sql).collect().to_pydict(), name, recorded)
+        launches[name] += prof["k1_launches"]
+        with path("eager"):
+            eager = profile_query(ctx, sql, name + " eager", name_power,
+                                  top=12 if name == "q18_bigorders" else 0)
+        log(f"[sql] {name_power}: {name} SF{SF} matches the numpy oracle ({len(rows[0][next(iter(rows[0]))])} "
+            f"rows) in the cold run, the check and the replay; {graph_state(wq)}; K1 launches {per_run} "
+            f"(cold, check, capture), {recorded} recorded by the capture, {prof['k1_launches']} run by "
+            f"the profiled replay; "
+            f"runs {['%.3f' % t for t in secs]} ms; {medians(runs)}; profiled replay: kernel time "
+            f"{prof['kernel_ms']:.3f} ms in {prof['launches']} launches, device idle share "
+            f"{prof['idle_share']:.1%}; profiled eager run: {eager['kernel_ms']:.3f} ms in "
+            f"{eager['launches']} launches, idle {eager['idle_share']:.1%}; host syncs per warm run "
+            f"{syncs[0]} (+{syncs[1]} to decode the result); decode {dec:.3f} ms; peak memory {peak_mb:.1f} MiB "
+            f"({peak_mb - base_mb:.1f} MiB above the {base_mb:.1f} MiB allocated before the run, the "
+            f"table's {table_mb:.1f} MiB among them)")
+    log(f"[memory] {name_power}: sql phase, {graphs_held(ctx)}")
     del ctx, table
     torch.cuda.empty_cache()
     return launches, err, checked
@@ -622,9 +852,9 @@ def phase_f4(name_power: str) -> None:
 # ---------------------------------------------------------------------------
 
 TPCH_CHECK_SF = 0.1
-# SF1 timing: medians of 5 runs, this many times, after two warm-ups; once
-# the SF1 loop has run TPCH_BUDGET_S seconds, TPCH_SHORT_BATCHES for the rest
-TPCH_BATCHES = 5
+# SF1 timing: this many rounds of 5 runs per path (warm_paths); once the
+# SF1 loop has run TPCH_BUDGET_S seconds, TPCH_SHORT_BATCHES for the rest
+TPCH_BATCHES = 4
 TPCH_SHORT_BATCHES = 2
 TPCH_BUDGET_S = 300.0
 # the queries whose GROUP BY takes the small-domain path at SF 0.1 and SF1,
@@ -774,7 +1004,10 @@ def join_candidates(ctx, q: int) -> list:
 def tpch_check(name_power: str) -> tuple:
     """SF 0.1: every query on the card against the port on the CPU over the
     same host arrays, with K1's path on the card held to the CPU's and K1
-    against its plain version at each call's inputs."""
+    against its plain version at each call's inputs; then three more
+    collects on each device (the check, the capture and replay, a replay):
+    the card captures a graph exactly where the CPU twin becomes one unit,
+    and every replay gives the CPU's rows."""
     t0 = time.perf_counter()
     data = tpchdata.generate_tpch(TPCH_CHECK_SF, SEED)
     cpu, gpu = ExecutionContext(device="cpu"), ExecutionContext()
@@ -782,33 +1015,54 @@ def tpch_check(name_power: str) -> tuple:
     tpchdata.register_tpch(gpu, data)
     log(f"[tpch] SF{TPCH_CHECK_SF}: {data['lineitem']['l_orderkey'].shape[0]} lineitem rows; "
         f"generated and registered on the card and the CPU in {time.perf_counter() - t0:.3f} s")
-    err, checked = 0, []
+    err, checked, twins = 0, [], {}
     for q in TPCH_QUERIES:
+        label = f"Q{q} SF{TPCH_CHECK_SF}"
         want, _, crec, csecs = run_recorded(cpu, q)
+        for _ in range(3):
+            run_tpch(cpu, q)
+        twins[q] = whole_query(cpu).is_program
         got, launches, rec, gsecs = run_recorded(gpu, q)
-        check_tpch(f"Q{q} SF{TPCH_CHECK_SF} card vs CPU", got, tpch_rows(want), q in FULLY_ORDERED)
+        check_tpch(f"{label} card vs CPU", got, tpch_rows(want), q in FULLY_ORDERED)
         if (launches > 0) != bool(crec.calls) or (launches > 0) != (q in TPCH_K1_QUERIES):
-            raise AssertionError(f"Q{q} SF{TPCH_CHECK_SF}: K1 launched {launches} times on the card; "
+            raise AssertionError(f"{label}: K1 launched {launches} times on the card; "
                                  f"the CPU run called it {len(crec.calls)} times")
         for i, args in enumerate(rec.calls):
             checked.append(f"tpch-q{q}-sf{TPCH_CHECK_SF}-inputs-{i}")
             err = max(err, k1_check(checked[-1], *args))
-        log(f"[tpch] {name_power}: Q{q} SF{TPCH_CHECK_SF} on the card equals the CPU "
-            f"({len(tpch_rows(got))} rows, {'in order' if q in FULLY_ORDERED else 'as multisets'}); "
-            f"K1 launches {launches}; cold run card {gsecs * 1e3:.3f} ms, CPU {csecs * 1e3:.3f} ms")
+        for i in range(3):
+            check_tpch(f"{label} warm run {i + 2} card vs CPU", run_tpch(gpu, q).to_pydict(),
+                       tpch_rows(want), q in FULLY_ORDERED)
+        wq = whole_query(gpu)
+        if twins[q]:
+            require_capture(label, wq)
+        elif wq.graph is not None:
+            raise AssertionError(f"{label}: the card captured a graph where the CPU twin runs node "
+                                 f"by node ({whole_query(cpu).failure})")
+        log(f"[tpch] {name_power}: {label} on the card equals the CPU "
+            f"({len(tpch_rows(got))} rows, {'in order' if q in FULLY_ORDERED else 'as multisets'}) "
+            f"in the cold run, the check and two replays; K1 launches {launches}; cold run card "
+            f"{gsecs * 1e3:.3f} ms, CPU {csecs * 1e3:.3f} ms; CPU twin "
+            f"{'one unit' if twins[q] else 'node by node: ' + str(whole_query(cpu).failure)}; "
+            f"card {graph_state(wq)}")
     del cpu, gpu
     torch.cuda.empty_cache()
-    return err, checked
+    return err, checked, twins
 
 
 def phase_tpch(name_power: str):
-    """The 22 TPC-H queries: checked at SF 0.1 against the CPU, then at SF1
-    on the card: Q3, Q12 and Q18 against numpy oracles, K1's path and its
-    inputs, warm medians, a profiled run, host syncs, peak memory and each
-    join's candidates; the top device ops of the join query with the most
-    kernel time.  Returns K1's launches per query at SF1, its max abs error
-    and the names of the inputs it was checked at."""
-    err, checked = tpch_check(name_power)
+    """The 22 TPC-H queries: checked at SF 0.1 against the CPU (and their
+    CPU twins), then at SF1 on the card, per query: the cold run, the check
+    and the captured graph's replay (Q3, Q12 and Q18 against numpy oracles;
+    the replay against the check's rows), K1's path and its inputs in the
+    cold run and in the capture, warm medians of the three paths in turns,
+    a profiled replay (K1 inside it) and a profiled eager run, host syncs
+    per warm run, the graph's pool, peak memory and each join's candidates;
+    the top device ops of the eager run of the join query with the most
+    kernel time.  Returns K1's launches per query at SF1 (cold run and
+    replay), its max abs error and the names of the inputs it was checked
+    at."""
+    err, checked, twins = tpch_check(name_power)
     t0 = time.perf_counter()
     data = tpchdata.generate_tpch(SF, SEED)
     oracles = tpch_oracles(data)
@@ -826,45 +1080,92 @@ def phase_tpch(name_power: str):
     launches, tops = {}, {}
     loop0 = time.perf_counter()
     for q in TPCH_QUERIES:
+        label = f"Q{q} SF{SF}"
         syncs0 = HOST_SYNCS[0]
-        got, launches[q], rec, cold = run_recorded(ctx, q)
+        got, launches[f"tpch-q{q}"], rec, cold = run_recorded(ctx, q)
         cold_syncs = HOST_SYNCS[0] - syncs0
         nrows = len(tpch_rows(got))
         if nrows == 0:
-            raise AssertionError(f"Q{q} SF{SF}: no rows")
+            raise AssertionError(f"{label}: no rows")
         if q in oracles:
-            check_tpch(f"Q{q} SF{SF} vs numpy oracle", got, oracles[q], True, TPCH_ORACLE_ORDER[q])
-        if (launches[q] > 0) != (q in TPCH_K1_QUERIES):
-            raise AssertionError(f"Q{q} SF{SF}: K1 launched {launches[q]} times")
+            check_tpch(f"{label} vs numpy oracle", got, oracles[q], True, TPCH_ORACLE_ORDER[q])
+        k1 = q in TPCH_K1_QUERIES
+        if (launches[f"tpch-q{q}"] > 0) != k1:
+            raise AssertionError(f"{label}: K1 launched {launches[f'tpch-q{q}']} times")
         for i, args in enumerate(rec.calls):
             checked.append(f"tpch-q{q}-sf{SF:g}-inputs-{i}")
             err = max(err, k1_check(checked[-1], *args))
-        del rec, got
+        del rec
+        eager_rows, _, _, check_secs = run_recorded(ctx, q)
+        replay_rows, glaunches, grec, capture_secs = run_recorded(ctx, q)
+        wq = whole_query(ctx)
+        if twins[q]:
+            require_capture(label, wq)
+        check_tpch(f"{label} replay vs the check's eager rows", replay_rows, tpch_rows(eager_rows),
+                   q in FULLY_ORDERED)
+        if q in oracles:
+            check_tpch(f"{label} replay vs numpy oracle", replay_rows, oracles[q], True,
+                       TPCH_ORACLE_ORDER[q])
+        recorded = 0
+        if wq.graph is not None:
+            recorded = len(grec.calls) - glaunches
+            if glaunches or (recorded > 0) != k1:
+                raise AssertionError(f"{label}: the capture launched K1 {glaunches} times and "
+                                     f"recorded {recorded} calls")
+            for i, args in enumerate(grec.calls):
+                checked.append(f"tpch-q{q}-sf{SF:g}-captured-inputs-{i}")
+                err = max(err, k1_check(checked[-1], *args))
+        del grec, eager_rows, replay_rows, got
         late = time.perf_counter() - loop0 > TPCH_BUDGET_S
         batches = TPCH_SHORT_BATCHES if late else TPCH_BATCHES
-        runs = warm_runs(lambda: run_tpch(ctx, q).to_pydict(), batches)
-        syncs0 = HOST_SYNCS[0]
+        runs = warm_paths(lambda: run_tpch(ctx, q).to_pydict(), batches)
+        syncs = warm_syncs(lambda: run_tpch(ctx, q), lambda t: t.to_pydict())
+        dec = decode_ms(lambda: run_tpch(ctx, q))
         base_mb = torch.cuda.memory_allocated() / 2**20
         torch.cuda.reset_peak_memory_stats()
         run_tpch(ctx, q).to_pydict()
         torch.cuda.synchronize()
-        syncs = HOST_SYNCS[0] - syncs0
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        prof = profile_run(lambda: run_tpch(ctx, q).to_pydict())
+        if wq.graph is not None:
+            prof = profiled_replay(lambda: run_tpch(ctx, q).to_pydict(), label, recorded)
+            if prof["k1_launches"]:
+                launches[f"tpch-q{q}-graph"] = prof["k1_launches"]
+        else:
+            prof = profile_run(lambda: run_tpch(ctx, q).to_pydict())
+        with path("eager"):
+            eager = profile_run(lambda: run_tpch(ctx, q).to_pydict())
         if q not in TPCH_JOINLESS:
-            tops[q] = prof
+            tops[q] = eager
         cands = join_candidates(ctx, q)
-        log(f"[tpch] {name_power}: Q{q} SF{SF} {nrows} rows"
-            f"{' (matches the numpy oracle)' if q in oracles else ''}; K1 launches {launches[q]}; "
-            f"cold run {cold * 1e3:.3f} ms, {cold_syncs} host syncs; {spread(runs)}"
-            f"{' (short: past the phase budget)' if late else ''}; runs {['%.3f' % r for r in runs]}; "
-            f"profiled run {prof['profiled_wall_ms']:.3f} ms wall, kernel time {prof['kernel_ms']:.3f} ms "
-            f"in {prof['launches']} launches, device idle share {prof['idle_share']:.1%}; host syncs per "
-            f"warm run {syncs}; peak memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the "
-            f"{base_mb:.1f} MiB allocated before the run); join candidates {cands}")
+        log(f"[tpch] {name_power}: {label} {nrows} rows"
+            f"{' (cold run and replay match the numpy oracle)' if q in oracles else ''}; "
+            f"{graph_state(wq)}; K1 launches cold {launches[f'tpch-q{q}']}, recorded by the capture "
+            f"{recorded}, run by the profiled replay {prof.get('k1_launches', '-')}; "
+            f"cold run {cold * 1e3:.3f} ms, {cold_syncs} host syncs; check {check_secs * 1e3:.3f} ms; "
+            f"capture and replay {capture_secs * 1e3:.3f} ms; {medians(runs)}"
+            f"{' (short: past the phase budget)' if late else ''}; runs "
+            f"{ {p: ['%.3f' % r for r in v] for p, v in runs.items()} }; profiled replay "
+            f"{prof['profiled_wall_ms']:.3f} ms wall, kernel time {prof['kernel_ms']:.3f} ms in "
+            f"{prof['launches']} launches, device idle share {prof['idle_share']:.1%}; profiled eager "
+            f"run {eager['profiled_wall_ms']:.3f} ms wall, {eager['kernel_ms']:.3f} ms in "
+            f"{eager['launches']} launches, idle {eager['idle_share']:.1%}; host syncs per warm run "
+            f"{syncs[0]} (+{syncs[1]} to decode the result); decode {dec:.3f} ms; peak memory {peak_mb:.1f} MiB "
+            f"({peak_mb - base_mb:.1f} MiB above the {base_mb:.1f} MiB allocated before the run); "
+            f"join candidates {cands}")
+    log(f"[memory] {name_power}: tpch phase, {graphs_held(ctx)}")
+    # a new catalog version releases the cached plans' graphs, and with the
+    # last graph the pool (the allocator's other free blocks are returned
+    # first, so the difference is the pool's)
+    region = ctx.table("region").collect()
+    torch.cuda.empty_cache()
+    before = torch.cuda.memory_reserved()
+    ctx.register_table("region", region)
+    torch.cuda.empty_cache()
+    log(f"[memory] {name_power}: after re-registering a table: {graphs_held(ctx)}; reserved "
+        f"{before / 2**20:.1f} -> {torch.cuda.memory_reserved() / 2**20:.1f} MiB")
     heavy = max(tops, key=lambda q: tops[q]["kernel_ms"])
-    log(f"[tpch] {name_power}: top device ops of Q{heavy} SF{SF}, the join query with the most "
-        f"kernel time ({tops[heavy]['kernel_ms']:.3f} ms):")
+    log(f"[tpch] {name_power}: top device ops of an eager run of Q{heavy} SF{SF}, the join query "
+        f"with the most kernel time ({tops[heavy]['kernel_ms']:.3f} ms):")
     for line in tops[heavy]["top"]:
         log(f"[tpch]   {line}")
     del ctx
@@ -890,13 +1191,13 @@ def main() -> int:
     err = phase_kernels()
 
     sql = get_query_sql(1)
-    ctx, launches, args = phase_main(sql)
+    ctx, launches, args, captured = phase_main(sql, name_power)
     err = max(err, k1_check("q1-main-path-inputs", *args))
+    err = max(err, k1_check("q1-main-path-captured-inputs", *captured))
+    del captured
 
     runs = warm_runs(lambda: ctx.sql(sql).collect().to_pydict(), Q1_BATCHES)
     log(f"[timing] {name_power}: Q1 SF{SF} {spread(runs)}; runs {['%.3f' % r for r in runs]}")
-
-    profile_query(ctx, sql, "Q1", name_power)
 
     kname = "smalldomain_sum_count_kernel"
     bound_ms = k1_bound_ms(*args)
@@ -919,8 +1220,7 @@ def main() -> int:
     tpch_launches, tpch_err, tpch_checked = phase_tpch(name_power)
     err = max(err, tpch_err)
     sql_checked += tpch_checked
-    by_path = {"q1": launches, **sql_launches,
-               **{f"tpch-q{q}": n for q, n in tpch_launches.items() if n}}
+    by_path = {"q1": launches, **sql_launches, **{k: n for k, n in tpch_launches.items() if n}}
 
     kernels = [{
         "name": "smalldomain_sum_count",
@@ -938,7 +1238,8 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": library_ms,
         "checked_against_plain": True,
-        "checked_at": ["K1_CASES", "q1-main-path-inputs", *sql_checked],
+        "checked_at": ["K1_CASES", "q1-main-path-inputs", "q1-main-path-captured-inputs",
+                       *sql_checked],
     }]
     print(name_power)
     print(json.dumps({"kernels": kernels}))

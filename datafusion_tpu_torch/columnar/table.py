@@ -12,12 +12,14 @@ count never wait for the device.
 
 from __future__ import annotations
 
+import threading
+
 import numpy as np
 import pandas as pd
 import torch
 
 from ..device import resolve_device
-from ..errors import InternalError
+from ..errors import HostReadInWholeQuery, InternalError
 from ..types import Field, Schema
 from ..types.dtypes import DataType
 from .column import Column, zeros_column
@@ -28,9 +30,32 @@ from .dictionary import StringDict
 HOST_SYNCS = [0]
 
 
+class WholeQueryBuild(threading.local):
+    """Per-thread state of a whole-query run being built
+    (``physical/query_compiler.py``).  ``active``: every host read raises
+    ``HostReadInWholeQuery`` (the counterpart of the error that aborts a
+    JAX trace), on the CPU and on the card alike.  ``strict``: a fresh
+    host-to-device copy raises too (the run is a CUDA graph capture, or
+    its CPU stand-in)."""
+
+    active = False
+    strict = False
+
+
+BUILD = WholeQueryBuild()
+
+
+def refuse_in_whole_query(what: str) -> None:
+    """Raise ``HostReadInWholeQuery(what)`` while a whole-query run is
+    being built."""
+    if BUILD.active:
+        raise HostReadInWholeQuery(what)
+
+
 def host_values(t: torch.Tensor) -> list:
     """A small device tensor's values as host Python values (waits for the
     device; counted in HOST_SYNCS)."""
+    refuse_in_whole_query("reads a device value on the host")
     HOST_SYNCS[0] += 1
     return t.tolist()
 
@@ -38,6 +63,7 @@ def host_values(t: torch.Tensor) -> list:
 def host_numpy(t: torch.Tensor) -> np.ndarray:
     """A device tensor copied to a host numpy array (waits for the device;
     counted in HOST_SYNCS)."""
+    refuse_in_whole_query("copies a device tensor to the host")
     HOST_SYNCS[0] += 1
     return t.cpu().numpy()
 
@@ -65,10 +91,14 @@ class Table:
         self._nrows = int(nrows) if isinstance(nrows, (int, np.integer)) else nrows
         # ``device=None`` means the card here too (device.py)
         self._device = columns[0].device if columns else resolve_device(device)
+        # set by a producer that sized the buffers from a learned capacity
+        # (a join's or a stage's, flag-guarded): a shrink learns nothing
+        self._cap_learned = False
 
     @property
     def nrows(self) -> int:
         if not isinstance(self._nrows, int):
+            refuse_in_whole_query("reads a row count on the host")
             HOST_SYNCS[0] += 1
             self._nrows = int(self._nrows)
         return self._nrows
@@ -152,8 +182,11 @@ class Table:
         """Right-size capacity to the live row count (live rows are
         front-compacted, so this is a slice).  Reading a lazy count waits
         for the device, so callers gate with ``only_if_above``.  No-op
-        unless the capacity at least halves."""
+        unless the capacity at least halves, and for a table whose producer
+        already sized it from a learned capacity (``_cap_learned``)."""
         if self.capacity <= only_if_above:
+            return self
+        if self._cap_learned and not isinstance(self._nrows, int):
             return self
         newcap = round_capacity(self.nrows)  # may sync a lazy count
         if newcap * 2 > self.capacity:

@@ -39,6 +39,13 @@ def resolve_device(device=None) -> torch.device:
     return dev
 
 
+def capturing() -> bool:
+    """Whether the current CUDA stream is being captured into a graph: its
+    work is recorded, not run, and its tensors hold nothing until a replay.
+    False where CUDA was never initialized (a CPU build cannot ask)."""
+    return torch.cuda.is_initialized() and torch.cuda.is_current_stream_capturing()
+
+
 def torch_dtype(storage) -> torch.dtype:
     """The torch dtype of a numpy storage dtype (``DataType.storage_np_dtype``)."""
     return _TORCH_OF_NP[np.dtype(storage)]

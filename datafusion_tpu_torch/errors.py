@@ -26,6 +26,21 @@ class ExecutionError(DataFusionError):
     """Runtime failure while executing a physical plan."""
 
 
+class HostReadInWholeQuery(ExecutionError):
+    """A node needed a value on the host (or a fresh host-to-device copy)
+    while a warm plan was being built into one whole-query run
+    (``physical/query_compiler.py``): such a plan keeps running node by
+    node.  ``node`` names the innermost operator that was running."""
+
+    def __init__(self, what: str):
+        super().__init__(what)
+        self.what = what
+        self.node = None
+
+    def __str__(self):
+        return self.what if self.node is None else f"{self.node}: {self.what}"
+
+
 class NotImplementedError_(DataFusionError):
     """Feature present in SQL surface but not yet supported."""
 

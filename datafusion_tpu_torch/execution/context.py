@@ -5,7 +5,10 @@ datafusion/src/execution/context.rs:123 ExecutionContext): sql() (:172),
 create_logical_plan (:214), optimize (:449), create_physical_plan (:478),
 register_table, catalogs with optional information_schema, ExecutionConfig,
 variable providers.  ``collect`` runs optimize -> create_physical_plan ->
-execute, with a plan cache.  File sources are ported in slice 6.
+execute, with a plan cache, inside a speculation window: a warm plan runs
+as one unit (``physical/query_compiler.py``), and an overflow of a
+speculative capacity reruns the query exactly.  File sources are ported in
+slice 6.
 
 The context owns a device: ``ExecutionContext(device=None)`` runs on the
 CUDA card and raises where there is none; pass ``device="cpu"`` to run
@@ -16,6 +19,8 @@ from __future__ import annotations
 
 from dataclasses import dataclass, field as dc_field
 from typing import Callable
+
+import torch
 
 from ..catalog.catalog import (
     MemoryCatalogProvider,
@@ -167,10 +172,20 @@ class ExecutionContext:
         if not isinstance(table, TableProvider):
             raise PlanError(f"cannot register {type(table)} as a table")
         self._default_schema().register_table(name, table)
-        self._catalog_version += 1
+        self._catalog_changed()
 
     def deregister_table(self, name: str) -> None:
         self._default_schema().deregister_table(name)
+        self._catalog_changed()
+
+    def _catalog_changed(self) -> None:
+        """A new catalog version: the cached plans can no longer be hit, so
+        they go, and their CUDA graphs' memory with them."""
+        from ..physical import query_compiler as QC
+
+        for phys in self._plan_cache.values():
+            QC.release(phys)
+        self._plan_cache.clear()
         self._catalog_version += 1
 
     def register_csv(self, name: str, path: str, *args, **kwargs):
@@ -330,9 +345,39 @@ class ExecutionContext:
             # volatile expressions must not freeze (now() is folded per query)
             if "now()" not in key[0] and len(self._plan_cache) < 256:
                 self._plan_cache[key] = phys
-        out = phys.execute()
+        from ..physical import query_compiler as QC
+
+        try:
+            out = _run(phys)
+        except torch.cuda.OutOfMemoryError:
+            # the CUDA graphs' pool may hold what this run needs: free it
+            # (later collects capture again) and run once more
+            if not QC.release_graphs():
+                raise
+            out = _run(phys)
         # final output uses unqualified display names (keep the row count
         # lazy: callers sync once when they read data)
         if len(display) == len(out.names):
             out = Table(display, out.columns, out.nrows_dev, device=out.device)
         return out
+
+
+def _run(phys) -> Table:
+    """A physical plan's result inside a speculation window: a warm plan
+    runs as one unit (a CUDA graph on the card); a cold one, or one with a
+    node that reads the host, runs node by node, learning capacities as it
+    goes.  When a speculatively sized join or stage overflowed, the plan
+    reruns exactly, which relearns its capacities (a graph baked the old
+    ones, so it is dropped)."""
+    from ..ops import kernels as K
+    from ..physical import query_compiler as QC
+
+    with K.spec_window() as w:
+        out = QC.try_whole_query(phys)
+        if out is None:
+            out = phys.execute()
+    if w.overflowed():
+        QC.invalidate(phys)
+        with K.spec_exact():
+            out = phys.execute()
+    return out

@@ -30,7 +30,7 @@ import torch
 
 from ..columnar.column import Column as CVec
 from ..columnar.dictionary import StringDict
-from ..columnar.table import Table, host_numpy
+from ..columnar.table import BUILD, Table, host_numpy, refuse_in_whole_query
 from ..device import torch_dtype
 from ..errors import ExecutionError, PlanError
 from ..ops import kernels as K
@@ -100,7 +100,7 @@ def _const_column(
     if dt.is_string:
         d = dictionary
         if d is None or d.code_of(sv.value) is None:
-            d = StringDict(np.array([sv.value], dtype=object))
+            d = _literal_dict(sv.value)
             code = 0
         else:
             code = d.code_of(sv.value)
@@ -117,6 +117,20 @@ def _const_column(
         torch.ones(capacity, dtype=torch.bool, device=device),
         literal=sv,
     )
+
+
+# one dictionary per string literal: a literal keeps one identity from run
+# to run, so the merges and tables derived from it are memo hits
+_LITERAL_DICTS: dict = {}
+
+
+def _literal_dict(value: str) -> StringDict:
+    d = _LITERAL_DICTS.get(value)
+    if d is None:
+        if len(_LITERAL_DICTS) > 4096:
+            _LITERAL_DICTS.clear()
+        d = _LITERAL_DICTS[value] = StringDict(np.array([value], dtype=object))
+    return d
 
 
 # ---------------------------------------------------------------------------
@@ -215,6 +229,17 @@ def cast_column(col: CVec, to: DataType, capacity: int | None = None, safe: bool
 
 
 def _cast_from_string(col: CVec, d: StringDict, to: DataType, safe: bool) -> CVec:
+    lut, ok = derived(d, ("cast", str(to), safe), lambda: _cast_tables(d, to, safe))
+    dev = col.data.device
+    codes = torch.clamp(col.data, 0, len(lut) - 1).to(torch.int64)
+    new_data = device_table(lut, dev)[codes]
+    new_valid = col.valid & device_table(ok, dev)[codes]
+    return CVec(to, new_data, new_valid)
+
+
+def _cast_tables(d: StringDict, to: DataType, safe: bool):
+    """(value, parsed) per dictionary code of a cast from strings."""
+
     def parse(s: str):
         try:
             if to.is_integer:
@@ -245,11 +270,7 @@ def _cast_from_string(col: CVec, d: StringDict, to: DataType, safe: bool) -> CVe
     if len(lut) == 0:
         lut = np.zeros(1, dtype=to.storage_np_dtype())
         ok = np.zeros(1, dtype=bool)
-    dev = col.data.device
-    codes = torch.clamp(col.data, 0, len(lut) - 1).to(torch.int64)
-    new_data = torch.from_numpy(lut).to(dev)[codes]
-    new_valid = col.valid & torch.from_numpy(ok).to(dev)[codes]
-    return CVec(to, new_data, new_valid)
+    return lut, ok
 
 
 def _cast_to_string(col: CVec) -> CVec:
@@ -271,7 +292,7 @@ def _cast_to_string(col: CVec) -> CVec:
     d, ucodes = StringDict.from_strings(strs)
     lut = np.zeros(len(used), dtype=np.int32)
     lut[used] = ucodes
-    return CVec(STRING, _lut(lut, col.data.device)[inv], col.valid, d)
+    return CVec(STRING, to_device(lut, col.data.device)[inv], col.valid, d)
 
 
 def _div_round_half_away(x: torch.Tensor, d: int) -> torch.Tensor:
@@ -280,8 +301,42 @@ def _div_round_half_away(x: torch.Tensor, d: int) -> torch.Tensor:
     return sign * torch.div(torch.abs(x) + d // 2, d, rounding_mode="floor")
 
 
-def _lut(values: np.ndarray, device) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(values)).to(device)
+def to_device(values: np.ndarray, device) -> torch.Tensor:
+    """A fresh copy of a host array on ``device``.  To the card it goes
+    from pinned memory without waiting, so it is not a sync (the
+    whole-query check runs with torch's synchronization check on)."""
+    t = torch.from_numpy(np.ascontiguousarray(values))
+    if torch.device(device).type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
+# host tables copied to a device, one copy per (table, device).  Each table
+# comes from a memo (``derived``, ``StringDict.merge``) and keeps one
+# identity, so a warm run copies nothing: a whole-query run, which a CUDA
+# graph captures, must not copy from the host, and reads these copies in
+# place (a capture keeps every copy alive: ``device_tables``)
+_ON_DEVICE: dict = {}
+
+
+def device_table(values: np.ndarray, device) -> torch.Tensor:
+    """``values``, a memoized host array, on ``device``.  The entry holds
+    the array, so its id cannot be reused while the entry lives."""
+    key = (id(values), str(device))
+    hit = _ON_DEVICE.get(key)
+    if hit is None or hit[0] is not values:
+        if BUILD.strict:
+            refuse_in_whole_query("copies a host table to the device")
+        if len(_ON_DEVICE) > 4096:
+            _ON_DEVICE.clear()
+        hit = _ON_DEVICE[key] = (values, to_device(values, device))
+    return hit[1]
+
+
+def device_tables() -> list:
+    """Every device table held now: those a capture reads are among them,
+    since a capture copies none (``BUILD.strict``)."""
+    return [t for _, t in _ON_DEVICE.values()]
 
 
 # what a host function gives over a dictionary's values (a LIKE's LUT, a
@@ -319,8 +374,8 @@ def harmonize_strings(a: CVec, b: CVec) -> tuple[CVec, CVec]:
         return a, b
     merged, ra, rb = StringDict.merge(a.dictionary, b.dictionary)
     dev = a.data.device
-    ja = _lut(ra, dev) if len(ra) else torch.zeros(1, dtype=torch.int32, device=dev)
-    jb = _lut(rb, dev) if len(rb) else torch.zeros(1, dtype=torch.int32, device=dev)
+    ja = device_table(ra, dev) if len(ra) else torch.zeros(1, dtype=torch.int32, device=dev)
+    jb = device_table(rb, dev) if len(rb) else torch.zeros(1, dtype=torch.int32, device=dev)
     ia = torch.clamp(a.data, 0, max(len(ra) - 1, 0)).to(torch.int64)
     ib = torch.clamp(b.data, 0, max(len(rb) - 1, 0)).to(torch.int64)
     return CVec(a.dtype, ja[ia], a.valid, merged), CVec(b.dtype, jb[ib], b.valid, merged)
@@ -648,13 +703,16 @@ def _like(l: CVec, r: CVec, negated: bool) -> CVec:
     regex = _like_regex(str(pat_dict.values[0]))
     d = l.dictionary
     assert d is not None
-    lut = derived(d, ("like", regex.pattern), lambda: d.predicate_lut(lambda s: bool(regex.match(s))))
-    if negated:
-        lut = ~lut
-    if len(lut) == 0:
-        lut = np.zeros(1, dtype=bool)
+    lut = derived(d, ("like", regex.pattern, negated), lambda: padded(
+        d.predicate_lut(lambda s: bool(regex.match(s)) != negated)))
     codes = torch.clamp(l.data, 0, len(lut) - 1).to(torch.int64)
-    return CVec(BOOL, _lut(lut, l.data.device)[codes], l.valid & r.valid)
+    return CVec(BOOL, device_table(lut, l.data.device)[codes], l.valid & r.valid)
+
+
+def padded(lut: np.ndarray) -> np.ndarray:
+    """A code-indexed table of at least one entry (an empty dictionary's
+    columns hold code 0, masked)."""
+    return lut if len(lut) else np.zeros(1, dtype=lut.dtype)
 
 
 def _like_regex(pattern: str):
@@ -810,14 +868,10 @@ class PhysInList(PhysicalExpr):
         if c.dtype.is_string:
             d = c.dictionary
             assert d is not None
-            lut = np.zeros(max(len(d), 1), dtype=bool)
-            for v in self.values:
-                if v.value is not None:
-                    code = d.code_of(str(v.value))
-                    if code is not None:
-                        lut[code] = True
+            strs = tuple(str(v.value) for v in self.values if v.value is not None)
+            lut = derived(d, ("in",) + strs, lambda: _in_table(d, strs))
             codes = torch.clamp(c.data, 0, max(len(d) - 1, 0)).to(torch.int64)
-            hit = _lut(lut, c.data.device)[codes]
+            hit = device_table(lut, c.data.device)[codes]
         else:
             hit = torch.zeros_like(c.valid)
             for v in self.values:
@@ -836,6 +890,16 @@ class PhysInList(PhysicalExpr):
         if any(v.value is None for v in self.values):
             valid = valid & hit
         return CVec(BOOL, out, valid)
+
+
+def _in_table(d: StringDict, strs: tuple) -> np.ndarray:
+    """Per dictionary code, whether its string is one of ``strs``."""
+    lut = np.zeros(max(len(d), 1), dtype=bool)
+    for v in strs:
+        code = d.code_of(v)
+        if code is not None:
+            lut[code] = True
+    return lut
 
 
 @dataclass

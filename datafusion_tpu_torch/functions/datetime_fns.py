@@ -50,10 +50,10 @@ def days_from_civil(y: torch.Tensor, m: torch.Tensor, d: torch.Tensor) -> torch.
 
 def last_day_of_month(y, m):
     leap = ((y % 4 == 0) & (y % 100 != 0)) | (y % 400 == 0)
-    lengths = torch.tensor(
-        [31, 28, 31, 30, 31, 30, 31, 31, 30, 31, 30, 31], dtype=torch.int32, device=m.device
-    )
-    base = lengths[torch.clamp(m - 1, 0, 11).to(torch.int64)]
+    # 31 days in odd months up to July and in even ones from August, 30 in
+    # the others, February aside (arithmetic: no table to copy from the host)
+    mc = torch.clamp(m, 1, 12)
+    base = torch.where(mc == 2, 28, 30 + (mc + (mc >= 8).to(mc.dtype)) % 2)
     return torch.where((m == 2) & leap, 29, base)
 
 

@@ -26,9 +26,9 @@ import torch
 
 from ..columnar.column import Column as CVec
 from ..columnar.dictionary import StringDict
-from ..columnar.table import host_numpy
+from ..columnar.table import host_numpy, refuse_in_whole_query
 from ..errors import PlanError
-from ..exprs.physical import derived, fn_key
+from ..exprs.physical import derived, device_table, fn_key, padded, to_device
 from ..ops import kernels as K
 from ..types.dtypes import (
     BOOL,
@@ -233,10 +233,12 @@ def scalar_return_type(name: str, arg_types: list[DataType]) -> DataType:
 # ---------------------------------------------------------------------------
 
 
-def _gather_lut(lut: np.ndarray, codes: torch.Tensor) -> torch.Tensor:
-    """lut[codes] on the codes' device (codes clamped into the table)."""
+def _gather_lut(lut: np.ndarray, codes: torch.Tensor, memoized: bool = False) -> torch.Tensor:
+    """lut[codes] on the codes' device (codes clamped into the table).  A
+    ``memoized`` table (from ``derived``) is copied to the device once."""
     idx = torch.clamp(codes, 0, len(lut) - 1).to(torch.int64)
-    return torch.from_numpy(np.ascontiguousarray(lut)).to(codes.device)[idx]
+    table = device_table(lut, codes.device) if memoized else to_device(lut, codes.device)
+    return table[idx]
 
 
 def _string_map(col: CVec, fn, out_dtype: DataType) -> CVec:
@@ -245,15 +247,18 @@ def _string_map(col: CVec, fn, out_dtype: DataType) -> CVec:
     assert d is not None
     key = (str(out_dtype),) + fn_key(fn)
     if out_dtype.is_string:
-        nd, remap = derived(d, key, lambda: d.map_values(fn))
-        if len(remap) == 0:
-            remap = np.zeros(1, dtype=np.int32)
-        return CVec(STRING, _gather_lut(remap, col.data), col.valid, nd)
+        nd, remap = derived(d, key, lambda: _map_values(d, fn))
+        return CVec(STRING, _gather_lut(remap, col.data, memoized=True), col.valid, nd)
     lut = derived(d, key, lambda: np.array(
         [fn(s) for s in d.values] if len(d) else [0],
         dtype=out_dtype.storage_np_dtype(),
     ))
-    return CVec(out_dtype, _gather_lut(lut, col.data), col.valid)
+    return CVec(out_dtype, _gather_lut(lut, col.data, memoized=True), col.valid)
+
+
+def _map_values(d: StringDict, fn):
+    nd, remap = d.map_values(fn)
+    return nd, padded(remap)
 
 
 def _as_host_scalar(col: CVec, fname: str = "", arg: str = "argument"):
@@ -315,7 +320,9 @@ def dispatch_scalar(
         a, b = args
         return CVec(FLOAT64, torch.atan2(_f64(a.data), _f64(b.data)), a.valid & b.valid)
     if n == "random":
-        # drawn on the host per call (non-deterministic like the reference)
+        # drawn on the host per call (non-deterministic like the reference),
+        # so a plan that calls it is never replayed as one whole-query run
+        refuse_in_whole_query("draws random() on the host")
         out = torch.from_numpy(np.random.rand(capacity)).to(device)
         return CVec(FLOAT64, out, torch.ones(capacity, dtype=torch.bool, device=device))
     if n == "array":
@@ -441,10 +448,9 @@ def dispatch_scalar(
         prefix = str(_as_host_scalar(args[1]))
         d = args[0].dictionary
         assert d is not None
-        lut = derived(d, ("starts_with", prefix), lambda: d.predicate_lut(lambda s: s.startswith(prefix)))
-        if len(lut) == 0:
-            lut = np.zeros(1, dtype=bool)
-        return CVec(BOOL, _gather_lut(lut, args[0].data), args[0].valid)
+        lut = derived(d, ("starts_with", prefix),
+                      lambda: padded(d.predicate_lut(lambda s: s.startswith(prefix))))
+        return CVec(BOOL, _gather_lut(lut, args[0].data, memoized=True), args[0].valid)
     if n == "strpos":
         sub = str(_as_host_scalar(args[1]))
         return _string_map(args[0], lambda s: s.find(sub) + 1, INT32)

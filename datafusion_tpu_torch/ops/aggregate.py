@@ -195,7 +195,8 @@ def _neutral(ordk: torch.Tensor, f: str) -> torch.Tensor:
     else:
         info = torch.iinfo(ordk.dtype)
         v = info.max if f == "min" else info.min
-    return torch.tensor(v, dtype=ordk.dtype, device=ordk.device)
+    # a fill on the device, not a copy from the host
+    return torch.full((), v, dtype=ordk.dtype, device=ordk.device)
 
 
 def _eval_aggregate(a: PhysAggExpr, t: Table, perm, seg: K.Segments, cap, alive, ngroups,
@@ -308,7 +309,7 @@ def _distinct_mask(v, gid, data, valid):
     prev_same = (
         (g2 == torch.roll(g2, 1)) & (d2 == torch.roll(d2, 1)) & (va2 & torch.roll(va2, 1))
     )
-    prev_same[0] = False
+    prev_same[:1].fill_(False)  # a fill, not a wait for a host copy
     keep = torch.empty_like(valid)
     keep[order] = va2 & ~prev_same  # back to the rows' own order
     return data, valid & keep

@@ -14,7 +14,8 @@ import threading
 import time
 from dataclasses import dataclass
 
-from ..columnar.table import Table
+from ..columnar.table import BUILD, Table
+from ..device import capturing
 from ..types import Schema
 
 
@@ -92,12 +93,19 @@ class ExecutionPlan:
             # host time: kernels are queued asynchronously, so this times
             # the enqueue, not the device work
             self.metrics.timer("elapsed_ns").add(time.perf_counter_ns() - t0)
+        except Exception as e:
+            # a failed whole-query build names its innermost operator
+            if BUILD.active and getattr(e, "node", None) is None:
+                e.node = self._display_line()
+            raise
         finally:
             st.depth = depth
         # record the table, not out.nrows: reading nrows here would force a
         # device sync per operator (Table keeps lazy device-resident counts);
-        # collect_plan_metrics materializes on harvest
-        self._metrics_out = out
+        # collect_plan_metrics materializes on harvest.  Not while a CUDA
+        # graph is captured: its tensors hold nothing until a replay
+        if not capturing():
+            self._metrics_out = out
         if getattr(self, "_dedup_shared", False):
             self._dedup_memo = (st.epoch, out)
         return out

@@ -20,7 +20,7 @@ import torch
 from ..columnar.column import Column
 from ..columnar.dictionary import StringDict
 from ..columnar.table import Table, round_capacity
-from ..exprs.physical import PhysicalExpr, cast_column
+from ..exprs.physical import PhysicalExpr, cast_column, device_table
 from ..types import Field, Schema
 from ..types.dtypes import STRING
 from . import kernels as K
@@ -234,6 +234,12 @@ def concat_tables(tables: list[Table], schema: Schema) -> Table:
     return Table(schema.names(), cols, total, device=dev)
 
 
+# a union's merged dictionary and remap tables per tuple of input
+# dictionaries: one identity from run to run, so a warm run copies no
+# table from the host (exprs/physical.py::device_table)
+_UNION_MERGES: dict = {}
+
+
 def _merge_dictionaries(pieces: list[Column]):
     """The pieces of one string column remapped onto one sorted dictionary
     (no remap when they already share one)."""
@@ -242,15 +248,27 @@ def _merge_dictionaries(pieces: list[Column]):
     if len(distinct) <= 1:
         merged = live[0] if live else StringDict.empty()
         return [Column(STRING, p.data, p.valid, merged) for p in pieces], merged
-    all_vals = np.unique(np.concatenate([d.values.astype(str) for d in distinct.values()]))
-    merged = StringDict(all_vals.astype(object))
+    key = tuple(distinct)
+    hit = _UNION_MERGES.get(key)
+    if hit is None or any(a is not b for a, b in zip(hit[0], distinct.values())):
+        all_vals = np.unique(np.concatenate([d.values.astype(str) for d in distinct.values()]))
+        remaps = {
+            i: np.searchsorted(all_vals, d.values.astype(str)).astype(np.int32)
+            for i, d in distinct.items()
+        }
+        if len(_UNION_MERGES) > 4096:
+            _UNION_MERGES.clear()
+        hit = _UNION_MERGES[key] = (
+            tuple(distinct.values()), StringDict(all_vals.astype(object)), remaps
+        )
+    _, merged, remaps = hit
     out = []
     for p in pieces:
         data = p.data
         if p.dictionary is not None and len(p.dictionary) > 0:
-            remap = np.searchsorted(all_vals, p.dictionary.values.astype(str)).astype(np.int32)
+            remap = remaps[id(p.dictionary)]
             idx = torch.clamp(p.data, 0, len(remap) - 1).to(torch.int64)
-            data = torch.from_numpy(remap).to(p.data.device)[idx]
+            data = device_table(remap, p.data.device)[idx]
         out.append(Column(STRING, data, p.valid, merged))
     return out, merged
 

@@ -4,17 +4,23 @@ Port of ``datafusion_tpu/ops/join.py`` (reference: datafusion's
 hash_join.rs and cross_join.rs).  No pointer-chasing hash table: the build
 side is sorted by a 32-bit fold of a 64-bit key hash; each probe row finds
 its run of equal hashes by binary search; the candidate pairs are expanded
-(``repeat_interleave``), verified on the key data (and on a residual
-filter), and every join type derives from the verified pairs:
-inner keeps them, semi and anti keep probe rows with or without one, and
-the outer joins add the unmatched rows of one side or both, NULL-padded.
+(``kernels.join_expand``), verified on the key data (and on a residual
+filter), and every join type derives from the verified pairs: inner keeps
+them, semi and anti keep probe rows with or without one, and the outer
+joins add the unmatched rows of one side or both, NULL-padded.
 
-Two host syncs per join, as on the reference's exact path: the candidate
-total sizes the expansion, and the verified count sizes the output.  The
-reference's speculative sizing, its learned capacities, its merge-rank
-probe (a TPU workaround), the FK-specialized expansion, the direct-compare
-path for tiny builds and the build reuse of morsel-streamed joins are not
-carried over (whole-query compilation and morsels are later slices).
+The exact path reads two counts on the host: the candidate total sizes the
+expansion, and the verified count sizes the output.  It runs a join's
+first time and after an overflow, and learns both capacities.  Inside a
+speculation window (``kernels.py``) later runs size both from what it
+learned, with no host read, and record an overflow flag; a join it has not
+learned yet speculates at the probe's capacity when it is an inner, semi
+or anti join over a small probe.  The reference's merge-rank probe, its
+direct-compare path for tiny builds, its fan-out-free phase B and its JIT
+caches are not carried over (checking each probe row's candidates in
+place, over the probe's capacity, took more kernel time on the card than
+expanding at the learned capacity: PERF.md); the build reuse of
+morsel-streamed joins comes with morsels (slice 6).
 """
 
 from __future__ import annotations
@@ -33,6 +39,10 @@ JOIN_TYPES = ("inner", "left", "right", "full", "semi", "anti")
 
 # below this capacity, padding costs less than the count sync a shrink needs
 SHRINK_SYNC_MIN_CAP = 1 << 17
+
+# (expansion capacity, output capacity) per join signature, learned by the
+# exact path and read by speculative runs
+_LEARNED: dict = {}
 
 
 class HashJoinExec(ExecutionPlan):
@@ -73,7 +83,8 @@ class HashJoinExec(ExecutionPlan):
         lt = self.left.execute()
         rt = self.right.execute()
         # joins sort and probe at capacity: a large buffer around a small
-        # live count (a selective filter) is worth one count sync
+        # live count (a selective filter) is worth one count sync, unless
+        # its producer sized it from a learned capacity
         lt = lt.shrink_to_fit(only_if_above=SHRINK_SYNC_MIN_CAP)
         rt = rt.shrink_to_fit(only_if_above=SHRINK_SYNC_MIN_CAP)
         return join_tables(lt, rt, self.on, self.join_type, self.filter, self.metrics)
@@ -104,11 +115,33 @@ def _key_hash(keys) -> torch.Tensor:
     ))
 
 
+def _table_sig(t: Table):
+    """What a join's learned capacities depend on besides its data: names,
+    types, capacities, dictionaries and the int32 narrowing of each key."""
+    return (
+        tuple(t.names),
+        tuple(
+            (str(c.dtype), c.capacity, id(c.dictionary), K.vrange_narrows_i32(c.vrange))
+            for c in t.columns
+        ),
+    )
+
+
 def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) -> Table:
-    """Equi-join of two tables (the reference's exact path)."""
+    """Equi-join of two tables: the exact path, or inside a speculation
+    window the speculative one (module docstring)."""
     dev = lt.device
     lcap, rcap = lt.capacity, rt.capacity
     nl, nr = lt.nrows_dev, rt.nrows_dev
+    key = (_table_sig(lt), _table_sig(rt), repr(on), join_type, repr(filter))
+    spec = None
+    if K.spec_active():
+        spec = _LEARNED.get(key)
+        if spec is None and join_type in ("inner", "semi", "anti") and lcap <= SHRINK_SYNC_MIN_CAP:
+            # fan-out free joins (every TPC-H join's key side) fit the
+            # probe's capacity; a larger probe would expand at a capacity
+            # far above a selective join's pairs
+            spec = (lcap, None)
     lkeys, rkeys = _join_keys(lt, rt, on)
 
     # ---- phase A: hash, sort the build side, probe --------------------------
@@ -117,20 +150,25 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
     for c in lkeys:
         probe_ok = probe_ok & c.valid
     lo, counts = K.join_probe_counts_binary(sorted_hash, _key_hash(lkeys), probe_ok, nr)
-    # one host read sizes the expansion
-    total = host_values(K.candidate_stats(counts))[0]
-    if metrics is not None:
-        metrics.counter("join_candidates").add(total)
+    stats = K.candidate_stats(counts)
+    if spec is None:
+        # one host read sizes the expansion
+        total = host_values(stats)[0]
+        if metrics is not None:
+            metrics.counter("join_candidates").add(total)
+        expand_cap, final_cap = total, None
+        flag = None
+    else:
+        expand_cap, final_cap = spec
+        flag = stats[0] > expand_cap
 
     # ---- phase B: expand, verify, materialize -------------------------------
-    probe_idx, build_idx = K.join_expand(lo, counts, build_order, total)
-    ok = K.verify_equal(
-        tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in lkeys),
-        tuple(c.valid for c in lkeys),
-        tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in rkeys),
-        tuple(c.valid for c in rkeys),
-        probe_idx, build_idx,
-    )
+    lord = tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in lkeys)
+    lval = tuple(c.valid for c in lkeys)
+    rord = tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in rkeys)
+    rval = tuple(c.valid for c in rkeys)
+    probe_idx, build_idx, pair_alive, _ = K.join_expand(lo, counts, build_order, expand_cap)
+    ok = K.verify_equal(lord, lval, rord, rval, probe_idx, build_idx, pair_alive)
     if filter is not None:
         fres = filter.evaluate(_gather_pair_table(lt, rt, probe_idx, build_idx))
         ok = ok & fres.data.to(torch.bool) & fres.valid
@@ -138,10 +176,10 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
     if join_type == "inner":
         li, ri, keep = probe_idx, build_idx, ok
     elif join_type in ("semi", "anti"):
-        matched = _any_match_per_probe(counts, ok)
         l_alive = torch.arange(lcap, device=dev) < nl
         li = torch.arange(lcap, device=dev)
         ri = None
+        matched = _matches_per_probe(counts, ok) > 0
         keep = (matched if join_type == "semi" else ~matched) & l_alive
     else:
         # left / right / full outer: the matched pairs, then the unmatched
@@ -151,7 +189,7 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
             l_alive = torch.arange(lcap, device=dev) < nl
             li_parts.append(torch.arange(lcap, device=dev))
             ri_parts.append(torch.full((lcap,), -1, dtype=torch.int64, device=dev))
-            keep_parts.append(l_alive & ~_any_match_per_probe(counts, ok))
+            keep_parts.append(l_alive & ~(_matches_per_probe(counts, ok) > 0))
         if join_type in ("right", "full"):
             visited = torch.zeros(rcap, dtype=torch.int32, device=dev)
             visited.index_add_(0, build_idx, ok.to(torch.int32))
@@ -166,9 +204,24 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
         ri = None if ri is None else ri.new_full((1,), -1)
         keep = keep.new_zeros(1)
 
-    # one host read sizes the output
-    cnt = host_values(keep.sum())
-    out_cap = round_capacity(max(cnt, 1))
+    if spec is None:
+        # one host read sizes the output; learn both capacities
+        cnt = host_values(keep.sum())
+        out_cap = round_capacity(max(cnt, 1))
+        if len(_LEARNED) > 4096:
+            _LEARNED.clear()
+        _LEARNED[key] = (round_capacity(max(total, 1)), out_cap)
+    else:
+        cnt = keep.sum()
+        if final_cap is None:
+            out_cap = round_capacity(keep.shape[0])
+        else:
+            # flag from the count before the clamp: the clamped count can
+            # never exceed the capacity
+            flag = flag | (cnt > final_cap)
+            out_cap = final_cap
+            cnt = torch.clamp(cnt, max=final_cap)
+        K.spec_record(flag)
     sel = K.keep_index(keep, out_cap)
     live = torch.arange(out_cap, device=dev) < cnt
     cols = _side_columns(lt, li[sel], live)
@@ -176,7 +229,10 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
     if ri is not None:
         cols += _side_columns(rt, ri[sel], live)
         names += list(rt.names)
-    return Table(names, cols, cnt, device=dev)
+    out = Table(names, cols, cnt, device=dev)
+    # right-sized from a count or a learned capacity: a shrink learns nothing
+    out._cap_learned = spec is None or final_cap is not None
+    return out
 
 
 def _side_columns(t: Table, idx: torch.Tensor, live: torch.Tensor) -> list:
@@ -190,12 +246,14 @@ def _side_columns(t: Table, idx: torch.Tensor, live: torch.Tensor) -> list:
     ]
 
 
-def _any_match_per_probe(counts: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
-    """Per probe row, whether any of its candidate pairs verified, from
-    prefix sums over the pairs (each probe row's pairs are contiguous)."""
+def _matches_per_probe(counts: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
+    """Per probe row, how many of its candidate pairs verified, from prefix
+    sums over the pairs (each probe row's pairs are contiguous).  Pairs
+    past the expansion (an overflow, flagged) count as unverified."""
+    n = ok.shape[0]
     cum = torch.cumsum(counts, 0)
     mc = torch.cat([ok.new_zeros(1, dtype=torch.int64), torch.cumsum(ok, 0)])
-    return (counts > 0) & (mc[cum] - mc[cum - counts] > 0)
+    return mc[torch.clamp(cum, max=n)] - mc[torch.clamp(cum - counts, max=n)]
 
 
 def _gather_pair_table(lt: Table, rt: Table, probe_idx, build_idx) -> Table:

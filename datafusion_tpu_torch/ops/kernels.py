@@ -21,12 +21,16 @@ over the sorted ids, once per grouping (``segments``), with no host sync.
 The join primitives hash the key columns (the reference's 64-bit mix,
 computed in int64 with logical right shifts, bit for bit), sort the build
 side by its folded hash once, find each probe row's run of equal hashes
-by binary search, expand the candidate pairs with ``repeat_interleave``
-and verify them on the key data.
+by binary search, expand the candidate pairs into a given capacity and
+verify them on the key data.  The speculation window (``spec_window``)
+lets joins and stages size their outputs from learned capacities with
+device-side overflow flags instead of host reads.
 """
 
 from __future__ import annotations
 
+import os
+import threading
 from typing import NamedTuple
 
 import torch
@@ -227,25 +231,23 @@ def take(datas: tuple, valids: tuple, idx: torch.Tensor):
 # ---------------------------------------------------------------------------
 
 
-def _at(x: torch.Tensor, i) -> torch.Tensor:
-    """x[i] as a 0-dim tensor for a host or 0-dim device index, without
-    waiting for the device."""
-    i = torch.as_tensor(i, dtype=torch.int64, device=x.device).reshape(1)
-    return x.gather(0, i)[0]
-
-
 def _boundary_accum(boundary: torch.Tensor, k: torch.Tensor, v: torch.Tensor):
     return boundary | (k != torch.roll(k, 1)) | (v != torch.roll(v, 1))
 
 
 def _gid_from_boundary(boundary: torch.Tensor, nrows):
+    """(gid, ngroups) without waiting for the device and without a copy
+    from the host (a host count selects its row by a view)."""
     cap = boundary.shape[0]
     alive = torch.arange(cap, device=boundary.device) < nrows
     boundary = boundary.clone()
-    boundary[0] = True
+    boundary[:1].fill_(True)  # a fill: assigning a host scalar copies it to the card and waits
     gid = torch.cumsum(boundary & alive, 0) - 1
-    last = torch.clamp(torch.as_tensor(nrows, device=gid.device) - 1, min=0)
-    ngroups = torch.where(torch.as_tensor(nrows, device=gid.device) > 0, _at(gid, last) + 1, 0)
+    if isinstance(nrows, int):
+        ngroups = gid[nrows - 1] + 1 if nrows > 0 else gid.new_zeros(())
+    else:
+        last = torch.clamp(nrows - 1, min=0).to(torch.int64).reshape(1)
+        ngroups = torch.where(nrows > 0, gid.gather(0, last)[0] + 1, 0)
     gid = torch.where(alive, gid, cap - 1)
     return gid, ngroups
 
@@ -422,36 +424,131 @@ def candidate_stats(counts: torch.Tensor) -> torch.Tensor:
     return torch.stack([counts.sum(dtype=torch.int64), counts.max().to(torch.int64)])
 
 
-def join_expand(lo, counts, build_order, total: int):
-    """The candidate pairs, ``total`` of them: probe rows in order, each
+def join_expand(lo, counts, build_order, out_cap: int):
+    """The candidate pairs in ``out_cap`` slots: probe rows in order, each
     with its run of build rows in sorted-hash order (the reference's run
-    expansion, by its result)."""
+    expansion).  Slot r's probe row is the number of cumulative counts at
+    or below r (a binary search, no host read); slots at or past the
+    total are dead.  Returns (probe_idx, build_idx, alive, total), total a
+    0-dim int64 tensor that the caller compares with ``out_cap``.
+
+    torch's ``repeat_interleave(..., output_size=)`` cannot stand in here:
+    its CUDA kernel asserts on the device that the size equals the sum of
+    the repeats, and that assert ends the process instead of flagging."""
     dev = counts.device
-    probe_idx = torch.repeat_interleave(
-        torch.arange(counts.shape[0], device=dev), counts, output_size=total
-    )
-    starts = torch.cumsum(counts, 0) - counts
-    offset = torch.arange(total, device=dev) - starts[probe_idx]
+    cum = torch.cumsum(counts, 0)
+    total = cum[-1] if cum.numel() else cum.new_zeros(())
+    r = torch.arange(out_cap, device=dev)
+    probe_idx = torch.searchsorted(cum, r, right=True).clamp_(max=max(counts.shape[0] - 1, 0))
+    offset = r - (cum - counts)[probe_idx]
     build_pos = torch.clamp(lo[probe_idx] + offset, 0, build_order.shape[0] - 1)
-    return probe_idx, build_order[build_pos]
+    return probe_idx, build_order[build_pos], r < total, total.to(torch.int64)
 
 
-def verify_equal(probe_keys, probe_valids, build_keys, build_valids, probe_idx, build_idx):
+def verify_equal(probe_keys, probe_valids, build_keys, build_valids, probe_idx, build_idx,
+                 alive=None):
     """Exact key equality on candidate pairs: both sides non-null and
-    equal on every key column."""
-    ok = torch.ones(probe_idx.shape[0], dtype=torch.bool, device=probe_idx.device)
+    equal on every key column (and the pair ``alive``)."""
+    ok = (torch.ones(probe_idx.shape[0], dtype=torch.bool, device=probe_idx.device)
+          if alive is None else alive)
     for pk, pv, bk, bv in zip(probe_keys, probe_valids, build_keys, build_valids):
         ok = ok & pv[probe_idx] & bv[build_idx] & (gather(pk, probe_idx) == gather(bk, build_idx))
     return ok
 
 
+# ---------------------------------------------------------------------------
+# speculative sizing
+#
+# A join's exact path reads two counts on the host (the candidate total
+# sizes the expansion, the verified count the output), and a stage's
+# shrink reads its output count.  Inside a speculation window they instead
+# size their buffers from capacities an earlier exact run learned (or, for
+# small fan-out-free joins, from the probe capacity) and record a
+# device-side overflow flag.  The window's owner (``ExecutionContext.
+# collect``) reads the sum of the flags once per query and reruns exactly
+# when one is set.
+# ---------------------------------------------------------------------------
+
+
+class _Speculation(threading.local):
+    """Per-thread speculation state (each thread's window and flags are its
+    own).  ``DATAFUSION_TPU_NO_SPECULATIVE_JOINS`` set in the environment
+    turns speculation off for threads that start afterwards."""
+
+    def __init__(self):
+        self.enabled = not os.environ.get("DATAFUSION_TPU_NO_SPECULATIVE_JOINS")
+        self.window_depth = 0
+        self.exact = False
+        self.flags: list = []
+
+
+SPECULATION = _Speculation()
+
+
+def spec_active() -> bool:
+    s = SPECULATION
+    return s.enabled and s.window_depth > 0 and not s.exact
+
+
+def spec_record(flag: torch.Tensor) -> None:
+    """Record a 0-dim overflow flag (non-zero: overflowed)."""
+    SPECULATION.flags.append(flag)
+
+
+class _SpecWindow:
+    def __enter__(self):
+        SPECULATION.window_depth += 1
+        if SPECULATION.window_depth == 1:
+            SPECULATION.flags = []
+        return self
+
+    def __exit__(self, *exc):
+        SPECULATION.window_depth -= 1
+        return False
+
+    def overflowed(self) -> bool:
+        """One host read of the sum of the recorded flags; true: rerun
+        exactly.  No flag recorded: no read."""
+        from ..columnar.table import host_values
+
+        flags, SPECULATION.flags = SPECULATION.flags, []
+        if not flags:
+            return False
+        total = flags[0].to(torch.int32)
+        for f in flags[1:]:
+            total = total + f.to(torch.int32)
+        return host_values(total) > 0
+
+
+def spec_window() -> _SpecWindow:
+    return _SpecWindow()
+
+
+class _SpecExact:
+    def __enter__(self):
+        self._old = SPECULATION.exact
+        SPECULATION.exact = True
+        SPECULATION.flags = []
+        return self
+
+    def __exit__(self, *exc):
+        SPECULATION.exact = self._old
+        return False
+
+
+def spec_exact() -> _SpecExact:
+    return _SpecExact()
+
+
 def keep_index(keep: torch.Tensor, out_cap: int) -> torch.Tensor:
     """The positions where ``keep`` holds, in order, in a vector of
-    ``out_cap`` (at least their count); the slots past the count hold 0.
-    A stable partition without a sort or a host sync."""
+    ``out_cap``; the slots past their count hold 0, and positions past
+    ``out_cap`` (a speculative capacity that overflowed, which its caller
+    flags) are dropped.  A stable partition without a sort or a host
+    sync."""
     dev = keep.device
     pos = torch.cumsum(keep, 0) - 1
-    dst = torch.where(keep, pos, out_cap)
+    dst = torch.where(keep & (pos < out_cap), pos, out_cap)
     idx = torch.zeros(out_cap + 1, dtype=torch.int64, device=dev)
     idx.scatter_(0, dst, torch.arange(keep.shape[0], device=dev))
     return idx[:out_cap]

@@ -28,6 +28,8 @@ from typing import NamedTuple
 
 import torch
 
+from ..device import capturing
+
 MAX_DOMAIN = 256
 MAX_COLS = 8
 
@@ -84,7 +86,12 @@ def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int):
 
     On CUDA tensors this launches the kernel (at most 256 slots and 8
     columns, contiguous inputs) or raises; it never falls back to the
-    plain version.  ``smalldomain_sum_count.launches`` counts launches."""
+    plain version.  ``smalldomain_sum_count.launches`` counts the launches
+    it makes; a launch recorded into a CUDA graph is not one, and a replay
+    of the graph runs the kernel without calling this wrapper
+    (``physical/query_compiler.py``).  The launcher calls only
+    ``cudaGetDevice``, ``cudaDeviceGetAttribute`` and the launch on the
+    given stream, so a graph can capture it."""
     cols, masks = list(cols), list(masks)
     if len(cols) != len(masks):
         raise ValueError("cols and masks must pair up")
@@ -115,7 +122,9 @@ def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int):
     )
     if err != 0:
         raise RuntimeError(f"smalldomain_sum_count launch failed: CUDA error {err}")
-    smalldomain_sum_count.launches += 1
+    if not capturing():
+        # inside a CUDA graph capture the launch is recorded, not run
+        smalldomain_sum_count.launches += 1
     return sums, counts
 
 

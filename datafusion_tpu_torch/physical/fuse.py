@@ -96,7 +96,9 @@ class TailStageExec(ExecutionPlan):
 
     def _execute(self) -> Table:
         # the tail's sorts and aggregates run at the input's capacity:
-        # right-size a large, sparsely filled input first (one count sync)
+        # right-size a large, sparsely filled input first (one count sync,
+        # skipped for an input sized from a learned capacity); the tail
+        # learns its own output capacity per input signature
         t = self.input_exec.execute().shrink_to_fit(only_if_above=SHRINK_SYNC_MIN_CAP)
         return self.stage.execute(shrink=not self.root, src=t)
 

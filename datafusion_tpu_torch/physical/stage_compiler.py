@@ -18,6 +18,10 @@ of tensor ops over the stage's buffers, keeping the reference's plan:
     (``ops/aggregate.py::_eval_aggregate``); DISTINCT aggregates always
     take this path;
   * no-group aggregates are plain masked reductions.
+A stage that shrinks its output learns the capacity on its first run
+(per input signature for a stage above a join); inside a speculation
+window later runs truncate to it with an overflow flag instead of reading
+the count, as the reference's learned stage capacities do.
 """
 
 from __future__ import annotations
@@ -121,6 +125,7 @@ class CompiledStage:
         self.out_schema = plan.schema()
         self._dict_cache: dict = {}
         self._probe_cache: dict = {}
+        self._learned_caps: dict = {}
         if self.dynamic:
             self.out_dicts = None
             self._probe_specs = None
@@ -205,13 +210,44 @@ class CompiledStage:
             for f, d, v, dic in zip(self.out_schema.fields, out_d, out_v, self._out_dicts(src))
         ]
         t = Table(self.out_schema.names(), cols, nout, device=src.device)
-        if shrink:
-            # downstream operators run over capacity: right-size the
-            # buffers they will see (one count sync)
-            tgt = round_capacity(t.nrows)
-            if tgt < t.capacity:
-                t = t.with_capacity(tgt)
+        if not shrink:
+            return t
+        # downstream operators run over capacity: right-size the buffers
+        # they will see.  The first run reads the count and learns the
+        # capacity (per input signature for a dynamic stage); inside a
+        # speculation window later runs truncate to it without a read and
+        # record an overflow flag, so that growth reruns exactly.  A count
+        # the host holds sizes the buffers, and teaches, without a read
+        key = self._cap_key(src)
+        learned = self._learned_caps.get(key)
+        if learned is not None and K.spec_active() and not isinstance(nout, int):
+            if learned < t.capacity:
+                K.spec_record(nout > learned)
+                t = Table(
+                    t.names, [c.with_capacity(learned) for c in t.columns],
+                    torch.clamp(nout, max=learned), device=src.device,
+                )
+            t._cap_learned = True
+            return t
+        tgt = round_capacity(t.nrows)  # one count sync
+        if len(self._learned_caps) > 64:
+            self._learned_caps.clear()
+        self._learned_caps[key] = tgt
+        if tgt < t.capacity:
+            t = t.with_capacity(tgt)
         return t
+
+    def _cap_key(self, src: Table):
+        """What a dynamic stage's learned output capacity depends on besides
+        its data (a scan-rooted stage has one source)."""
+        if not self.dynamic:
+            return ()
+        return (
+            src.capacity,
+            tuple(str(c.dtype) for c in src.columns),
+            tuple(id(c.dictionary) for c in src.columns),
+            tuple(K.vrange_narrows_i32(c.vrange) for c in src.columns),
+        )
 
     def _out_dicts(self, src: Table):
         """The output dictionaries: fixed for a scan-rooted stage, cached
@@ -499,7 +535,10 @@ def _fused_small_domain_aggregate(
     if star is not None:
         counts = pk[star][1]
     else:
-        counts = torch.bincount(gid, minlength=domain + 1)[:domain]
+        # (bincount would read the largest id on the host)
+        counts = torch.zeros(domain + 1, dtype=torch.int64, device=dev).index_add_(
+            0, gid.to(torch.int64), torch.ones(cap, dtype=torch.int64, device=dev)
+        )[:domain]
     present = counts > 0
     dense = torch.cumsum(present.to(torch.int64), 0) - 1  # compacted group id
     ngroups = present.sum()
@@ -668,9 +707,10 @@ def _eval_aggregate_slots(a: PhysAggExpr, t: Table, hit, emit_state):
 def _one(x: torch.Tensor, valid_scalar, dtype, out_cap):
     """One output row (padded to out_cap) as a (data, valid) pair."""
     data = torch.zeros(out_cap, dtype=dtype, device=x.device)
-    data[0] = x.to(dtype)
+    data[:1].fill_(x.to(dtype))
     valid = torch.zeros(out_cap, dtype=torch.bool, device=x.device)
-    valid[0] = valid_scalar
+    # fills: assigning a host scalar copies it to the card and waits
+    valid[:1].fill_(valid_scalar)
     return data, valid
 
 

@@ -311,3 +311,216 @@ def test_join_queries_on_card_match_cpu(cuda, sql):
             ctx.register_table(name, t)
         out.append(ctx.sql(sql).collect().to_pydict())
     assert out[1] == out[0], sql
+
+
+# ---- whole-query execution: CUDA graphs -------------------------------------
+
+
+@pytest.fixture(scope="module")
+def tpch_sf01():
+    """The eight TPC-H tables at SF 0.1 on the card (a context of its own)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from datafusion_tpu_torch import tpchdata
+
+    ctx = ExecutionContext()
+    tpchdata.register_tpch(ctx, tpchdata.generate_tpch(0.1, 7))
+    return ctx
+
+
+def _wq(ctx):
+    return ctx._plan_cache[list(ctx._plan_cache)[-1]]._whole_query
+
+
+def _rows_close(got: dict, want: dict, label):
+    assert list(got) == list(want), label
+    for k in want:
+        assert len(got[k]) == len(want[k]), (label, k)
+        for x, y in zip(got[k], want[k]):
+            if isinstance(y, float) and x is not None:
+                assert x == y or abs(x - y) <= 1e-12 * max(abs(y), 1.0), (label, k, x, y)
+            else:
+                assert x == y, (label, k, x, y)
+
+
+def _sorted_rows(got: dict) -> dict:
+    """Columns of rows sorted as a multiset (the queries without a full
+    ORDER BY may tie)."""
+    rows = sorted(zip(*got.values()), key=lambda r: tuple((v is None, str(v)) for v in r))
+    return {k: [r[i] for r in rows] for i, k in enumerate(got)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("q", range(1, 23))
+def test_tpch_graph_replay_equals_eager_and_exact(tpch_sf01, q):
+    """Each TPC-H query at SF 0.1: the first collect learns, the second
+    runs the checked speculative path eagerly, the third captures a CUDA
+    graph and replays it, the fourth replays it.  Every replay equals the
+    eager speculative rows and the exact path's rows (speculation off).
+    The plan becomes one graph where its CPU twin becomes one unit: on
+    every query but Q16, whose null-aware NOT IN cross join reads both
+    row counts on the host."""
+    from datafusion_tpu_torch.ops import kernels as K
+    from datafusion_tpu_torch.queries import run_tpch
+
+    ctx = tpch_sf01
+    runs = [_sorted_rows(run_tpch(ctx, q).to_pydict()) for _ in range(4)]
+    wq = _wq(ctx)
+    if q == 16:
+        assert wq.graph is None and wq.failure[0] == "guard", wq.failure
+        assert wq.failure[1].startswith("CrossJoinExec"), wq.failure
+    else:
+        assert wq.graph is not None, (q, wq.failure)
+    K.SPECULATION.enabled = False
+    try:
+        exact = _sorted_rows(run_tpch(ctx, q).to_pydict())
+    finally:
+        K.SPECULATION.enabled = True
+    for i, rows in enumerate(runs):
+        _rows_close(rows, exact, (q, i))
+    assert runs[3] == runs[2]  # two replays of one graph
+
+
+def _overflow_tables(device):
+    from datafusion_tpu_torch import Table
+
+    rng = np.random.default_rng(7)
+    f = {"k": rng.integers(0, 200, 5000), "x": rng.integers(0, 1000, 5000)}
+    d = {"k": np.arange(200), "y": rng.integers(0, 50, 200)}
+    return Table.from_pydict(f, device=device), Table.from_pydict(d, device=device)
+
+
+@pytest.mark.gpu
+def test_overflow_after_capture_drops_the_graph_and_captures_again(cuda):
+    """Re-registered data (a new plan speculating at the old plan's learned
+    capacities), then data rewritten in place under a captured graph: each
+    overflow reruns exactly, gives the exact rows, drops the graph, and two
+    collects later the plan is captured again."""
+    sql = "SELECT count(*) AS c, sum(x) AS sx FROM f JOIN d ON f.k = d.k WHERE y < 25"
+    cpu, gpu = ExecutionContext(device="cpu"), ExecutionContext()
+    for ctx, dev in ((cpu, "cpu"), (gpu, None)):
+        f, d = _overflow_tables(dev)
+        ctx.register_table("f", f)
+        ctx.register_table("d", d)
+    want = cpu.sql(sql).collect().to_pydict()
+    for _ in range(3):
+        assert gpu.sql(sql).collect().to_pydict() == want
+    assert _wq(gpu).graph is not None
+    d0 = _overflow_tables(None)[1]
+    from datafusion_tpu_torch import Table
+
+    gpu.register_table("d", Table.from_pydict({"k": np.arange(200), "y": np.zeros(200, np.int64)}))
+    for _ in range(3):
+        assert gpu.sql(sql).collect().to_pydict()["c"] == [5000]
+    wq = _wq(gpu)
+    assert wq.graph is not None
+    gpu.register_table("d", d0)
+    for _ in range(3):
+        assert gpu.sql(sql).collect().to_pydict() == want
+    assert _wq(gpu).graph is not None
+    # an outer join learns its capacities before it speculates; rewriting
+    # the build side's keys in place, under the graph, outgrows them
+    sql = "SELECT count(*) AS c, sum(y) AS sy FROM f LEFT JOIN d ON f.k = d.k"
+    for ctx in (cpu, gpu):
+        ctx.register_table("d", _overflow_tables("cpu" if ctx is cpu else None)[1])
+        for _ in range(3):
+            got = ctx.sql(sql).collect().to_pydict()
+    wq = _wq(gpu)
+    assert wq.graph is not None
+    for ctx in (cpu, gpu):
+        ctx.table("d").collect().column("k").data.zero_()
+    want = cpu.sql(sql).collect().to_pydict()
+    assert gpu.sql(sql).collect().to_pydict() == want
+    assert wq.graph is None
+    for _ in range(2):
+        assert gpu.sql(sql).collect().to_pydict() == want
+    assert wq.graph is not None and wq.failure is None
+
+
+@pytest.mark.gpu
+def test_repeat_interleave_with_a_short_output_size_asserts_on_the_card(cuda):
+    """Why the speculative expansion does not use repeat_interleave: with an
+    output_size below the sum of the repeats torch's CUDA kernel fails a
+    device-side assert, which ends the process (run in a child)."""
+    import subprocess
+    import sys
+
+    code = (
+        "import torch\n"
+        "c = torch.tensor([2, 2, 2], device='cuda')\n"
+        "torch.repeat_interleave(torch.arange(3, device='cuda'), c, output_size=4)\n"
+        "torch.cuda.synchronize()\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0, out.stdout
+    assert "assert" in out.stderr.lower() or "device-side" in out.stderr.lower(), out.stderr[-2000:]
+
+
+@pytest.mark.gpu
+def test_speculative_expansion_flags_a_fan_out_above_its_capacity(cuda):
+    """A fan-out above the learned capacity: the expansion fills its slots,
+    reports the total, and the query flags and reruns exactly; the process
+    goes on."""
+    from datafusion_tpu_torch import Table
+    from datafusion_tpu_torch.ops import kernels as K
+
+    counts = torch.tensor([3, 0, 5, 4], device=cuda)
+    lo = torch.tensor([0, 0, 3, 8], device=cuda)
+    order = torch.arange(12, device=cuda)
+    probe, build, alive, total = K.join_expand(lo, counts, order, 8)
+    torch.cuda.synchronize()
+    assert int(total) == 12 and int(alive.sum()) == 8
+    assert probe.tolist() == [0, 0, 0, 2, 2, 2, 2, 2] and build.tolist() == [0, 1, 2, 3, 4, 5, 6, 7]
+    n = 5000
+    t = {"k": np.arange(n) % 100, "pv": np.arange(n)}
+    u = {"k2": np.repeat(np.arange(100), 4), "bv": np.arange(400)}
+    sql = "SELECT count(*) c, sum(pv) s, sum(bv) b FROM t JOIN u ON k = k2"
+    ctx = ExecutionContext()
+    ctx.register_table("t", Table.from_pydict(t))
+    ctx.register_table("u", Table.from_pydict(u))
+    got = ctx.sql(sql).collect().to_pydict()  # speculates at the probe's capacity
+    torch.cuda.synchronize()
+    assert got["c"] == [n * 4]
+    assert got["s"] == [4 * int(np.arange(n).sum())]
+
+
+@pytest.mark.gpu
+def test_graphs_share_one_pool_and_replay_in_any_order(tpch_sf01):
+    """Every graph allocates from one shared pool: replays of different
+    plans interleaved in any order each give the plan's own rows, since a
+    replay's outputs are copied before the next replay starts."""
+    from datafusion_tpu_torch.physical import query_compiler as QC
+    from datafusion_tpu_torch.queries import run_tpch
+
+    ctx = tpch_sf01
+    qs = (1, 3, 5, 6, 12, 18)
+    want = {}
+    for q in qs:
+        for _ in range(3):
+            want[q] = _sorted_rows(run_tpch(ctx, q).to_pydict())
+        assert _wq(ctx).graph is not None, (q, _wq(ctx).failure)
+    assert list(QC._POOLS) == [torch.device("cuda", torch.cuda.current_device())]
+    assert QC.pool_bytes("cuda") > 0
+    for q in (18, 1, 1, 6, 3, 12, 5, 18, 3, 6, 12, 5, 1):
+        assert _sorted_rows(run_tpch(ctx, q).to_pydict()) == want[q], q
+
+
+@pytest.mark.gpu
+def test_a_new_catalog_version_releases_the_graphs(cuda):
+    """Registering a table releases the cached plans' graphs at once; the
+    next collects of the query capture a new one."""
+    from datafusion_tpu_torch.physical import query_compiler as QC
+
+    f, d = _overflow_tables(None)
+    ctx = ExecutionContext()
+    ctx.register_table("f", f)
+    ctx.register_table("d", d)
+    sql = "SELECT count(*) AS c, sum(x) AS sx FROM f JOIN d ON f.k = d.k WHERE y < 25"
+    want = [ctx.sql(sql).collect().to_pydict() for _ in range(3)][0]
+    wq = _wq(ctx)
+    assert wq.graph is not None and wq in set(QC._HOLDING)
+    ctx.register_table("d", d)
+    assert wq.graph is None and wq not in set(QC._HOLDING) and not ctx._plan_cache
+    for _ in range(3):
+        assert ctx.sql(sql).collect().to_pydict() == want
+    assert _wq(ctx).graph is not None and _wq(ctx) is not wq
