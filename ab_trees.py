@@ -13,7 +13,8 @@ CUDA graph and its replay), then ``--profiles`` replays under
 torch.profiler (kernel time: the device time of every kernel), then the
 median of ``--runs`` warm collects decoded to rows, each ending in a
 synchronize.  It prints one JSON line: per query the rows' digest, whether
-a graph was captured, the kernel times and the warm median.
+a graph was captured, the kernel times, the warm median and the cold
+run's peak device memory above what was allocated before it.
 
 The last lines: the card's name and power limit, then per query and tree
 the kernel times and warm medians of every process, the trees' medians of
@@ -53,7 +54,13 @@ def worker(tree: str, queries: list, sf: float, runs: int, profiles: int) -> dic
     torch.cuda.synchronize()
     out = {}
     for q in queries:
-        rows = [run_tpch(ctx, q).to_pydict() for _ in range(3)]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        rows = [run_tpch(ctx, q).to_pydict()]  # the cold run: peak memory above what was held
+        torch.cuda.synchronize()
+        cold_peak = (torch.cuda.max_memory_allocated() - base) / 2**20
+        rows += [run_tpch(ctx, q).to_pydict() for _ in range(2)]
         if any(r != rows[0] for r in rows):
             raise AssertionError(f"Q{q}: the three collects differ")
         plans = ctx._plan_cache
@@ -78,6 +85,7 @@ def worker(tree: str, queries: list, sf: float, runs: int, profiles: int) -> dic
             "graph": wq is not None and wq.graph is not None,
             "kernel_ms": kernel_ms,
             "warm_ms": statistics.median(times),
+            "cold_peak_mib": cold_peak,
         }
     return out
 
@@ -133,7 +141,8 @@ def main() -> int:
             med[w] = (statistics.median(ks), statistics.median(ws))
             line.append(f"{w}: graph {all(r[q]['graph'] for r in results[w])}, kernel ms per process "
                         f"{['%.3f' % k for k in ks]} (spread of each {[ '%.3f' % (max(r[q]['kernel_ms']) - min(r[q]['kernel_ms'])) for r in results[w]]}), "
-                        f"warm ms {['%.3f' % x for x in ws]}")
+                        f"warm ms {['%.3f' % x for x in ws]}, cold run's peak MiB above the held "
+                        f"{['%.1f' % r[q]['cold_peak_mib'] for r in results[w]]}")
         digests = {r[q]["digest"] for w in ("A", "B") for r in results[w]}
         same &= len(digests) == 1
         line.append(f"B/A kernel {med['B'][0] / med['A'][0]:.3f}, warm {med['B'][1] / med['A'][1]:.3f}; "

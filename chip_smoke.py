@@ -64,12 +64,27 @@ Phases (each raises, and the script exits non-zero, on failure):
                paths in turns (two rounds instead of four once the loop has
                run TPCH_BUDGET_S seconds), profiled replay and eager run,
                host syncs per warm run, pool and peak memory, each join's
-               candidate pairs; then the memory the shared graph pool holds
-               with every graph, and after a table is registered again
-               (which releases the cached plans' graphs); then the top
-               device ops of an eager run of the join query with the most
-               kernel time.  K1 is held against its plain version at every
-               call's inputs, captured ones included
+               candidate pairs, and how many times one eager collect
+               executes each node that shared-subtree deduplication marked
+               (Q15's revenue0 view: once, or the phase fails); then the
+               memory the shared graph pool holds with every graph, and
+               after a table is registered again (which releases the
+               cached plans' graphs); then the top device ops of an eager
+               run of the join query with the most kernel time.  K1 is held
+               against its plain version at every call's inputs, captured
+               ones included
+  9. window  - the window and rolling-window queries of
+               datafusion_tpu_torch/queries/windows.py (the window shapes
+               of TPC-DS Q67/Q70, Q51, Q47/Q57 and a RANGE offset frame,
+               and a 7-day rolling sum) over the TPC-H tables: at SF 0.1
+               (inside phase 8's check) each query's full and timed forms
+               on the card equal the CPU's in three collects; at SF1 the
+               full form against a numpy oracle (its peak memory printed),
+               the timed form in the cold run, the check and the capture
+               against the oracle's rows, a graph where the CPU twin is
+               one unit (W1-W3 must capture), and as in the tpch phase:
+               warm medians of three paths, syncs, decode, a profiled
+               replay and eager run (its top ops), peak memory
 The last two lines are the kernels JSON line and the ok JSON line.
 """
 
@@ -109,10 +124,12 @@ from datafusion_tpu_torch.q1data import (
 )
 from datafusion_tpu_torch.queries import (
     FULLY_ORDERED,
+    WINDOW_QUERIES,
     NAMED_QUERIES,
     get_named_query,
     get_query_sql,
     run_tpch,
+    window_sql,
 )
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
@@ -1001,6 +1018,29 @@ def join_candidates(ctx, q: int) -> list:
     return out
 
 
+def shared_executions(ctx, q: int) -> list:
+    """How many times one eager collect of query q executes each node that
+    shared-subtree deduplication marked (physical/dedup.py): once each, or
+    the check fails (Q15's revenue0 view)."""
+    plan = ctx._plan_cache[list(ctx._plan_cache)[-1]]
+    seen, stack, shared = set(), [plan], []
+    while stack:
+        node = stack.pop()
+        if id(node) in seen:
+            continue
+        seen.add(id(node))
+        if getattr(node, "_dedup_shared", False):
+            shared.append(node)
+        stack.extend(node.children())
+    before = [n.metrics.counter("executions").value for n in shared]
+    with path("eager"):
+        run_tpch(ctx, q).to_pydict()
+    out = [(n._display_line(), n.metrics.counter("executions").value - b) for n, b in zip(shared, before)]
+    if any(k != 1 for _, k in out):
+        raise AssertionError(f"Q{q}: shared nodes executed {out} times in one collect, want once each")
+    return out
+
+
 def tpch_check(name_power: str) -> tuple:
     """SF 0.1: every query on the card against the port on the CPU over the
     same host arrays, with K1's path on the card held to the CPU's and K1
@@ -1045,9 +1085,10 @@ def tpch_check(name_power: str) -> tuple:
             f"{gsecs * 1e3:.3f} ms, CPU {csecs * 1e3:.3f} ms; CPU twin "
             f"{'one unit' if twins[q] else 'node by node: ' + str(whole_query(cpu).failure)}; "
             f"card {graph_state(wq)}")
+    wtwins = window_check(cpu, gpu)
     del cpu, gpu
     torch.cuda.empty_cache()
-    return err, checked, twins
+    return err, checked, twins, wtwins
 
 
 def phase_tpch(name_power: str):
@@ -1062,10 +1103,11 @@ def phase_tpch(name_power: str):
     kernel time.  Returns K1's launches per query at SF1 (cold run and
     replay), its max abs error and the names of the inputs it was checked
     at."""
-    err, checked, twins = tpch_check(name_power)
+    err, checked, twins, wtwins = tpch_check(name_power)
     t0 = time.perf_counter()
     data = tpchdata.generate_tpch(SF, SEED)
     oracles = tpch_oracles(data)
+    woracles = window_oracles(data)
     ctx = ExecutionContext()
     tpchdata.register_tpch(ctx, data)
     torch.cuda.synchronize()
@@ -1137,6 +1179,9 @@ def phase_tpch(name_power: str):
         if q not in TPCH_JOINLESS:
             tops[q] = eager
         cands = join_candidates(ctx, q)
+        shared = shared_executions(ctx, q)
+        if q == 15 and not shared:
+            raise AssertionError("Q15: no shared node in the plan (revenue0 is used twice)")
         log(f"[tpch] {name_power}: {label} {nrows} rows"
             f"{' (cold run and replay match the numpy oracle)' if q in oracles else ''}; "
             f"{graph_state(wq)}; K1 launches cold {launches[f'tpch-q{q}']}, recorded by the capture "
@@ -1151,7 +1196,8 @@ def phase_tpch(name_power: str):
             f"{eager['launches']} launches, idle {eager['idle_share']:.1%}; host syncs per warm run "
             f"{syncs[0]} (+{syncs[1]} to decode the result); decode {dec:.3f} ms; peak memory {peak_mb:.1f} MiB "
             f"({peak_mb - base_mb:.1f} MiB above the {base_mb:.1f} MiB allocated before the run); "
-            f"join candidates {cands}")
+            f"join candidates {cands}"
+            f"{'; executions of each shared node in one eager collect ' + str(shared) if shared else ''}")
     log(f"[memory] {name_power}: tpch phase, {graphs_held(ctx)}")
     # a new catalog version releases the cached plans' graphs, and with the
     # last graph the pool (the allocator's other free blocks are returned
@@ -1168,9 +1214,264 @@ def phase_tpch(name_power: str):
         f"with the most kernel time ({tops[heavy]['kernel_ms']:.3f} ms):")
     for line in tops[heavy]["top"]:
         log(f"[tpch]   {line}")
+    phase_window(name_power, ctx, woracles, wtwins)
+    log(f"[memory] {name_power}: after the window phase, {graphs_held(ctx)}")
     del ctx
     torch.cuda.empty_cache()
     return launches, err, checked
+
+
+# ---------------------------------------------------------------------------
+# phase 9: windows and rolling windows over the TPC-H tables
+# ---------------------------------------------------------------------------
+
+WINDOW_TIMED_ORDER = {  # (column, descending) of each timed form's ORDER BY
+    "W1": [("o_custkey", False), ("rk", False), ("o_orderkey", False)],
+    "W2": [("l_suppkey", False), ("l_shipdate", False), ("l_orderkey", False), ("l_linenumber", False)],
+    "W3": [("l_partkey", False), ("l_orderkey", False), ("l_linenumber", False)],
+    "W4": [("o_custkey", False), ("d", False), ("o_orderkey", False)],
+}
+WINDOW_CAPTURE = {"W1", "W2", "W3"}  # must capture one CUDA graph each
+WINDOW_BATCHES = 3
+
+
+def table_arrays(t) -> dict:
+    """{column: (values, valid)} of a result table as numpy arrays (strings
+    decoded), without building Python values row by row."""
+    n = t.nrows
+    out = {}
+    for name, c in zip(t.names, t.columns):
+        data, valid = c.data[:n].cpu().numpy(), c.valid[:n].cpu().numpy()
+        if c.dtype.is_string:
+            data = np.asarray(c.dictionary.decode(data), dtype=object)
+        out[name.split(".")[-1]] = (data, valid)
+    return out
+
+
+def _rows_order(arrays: dict, keys) -> np.ndarray:
+    return np.lexsort(tuple(arrays[k][0] for k in reversed(keys)))
+
+
+def check_arrays(label: str, got: dict, want: dict, keys=None, floats=()) -> None:
+    """Equal columns, valid masks and values: exact, but the float columns
+    ``floats`` within rel 1e-12; rows matched by the ``keys`` columns when
+    given (both sides sorted by them), else in order."""
+    if set(got) != set(want):
+        raise AssertionError(f"{label}: columns {sorted(got)} != {sorted(want)}")
+    n = len(next(iter(want.values()))[0])
+    if len(next(iter(got.values()))[0]) != n:
+        raise AssertionError(f"{label}: {len(next(iter(got.values()))[0])} rows, want {n}")
+    og = _rows_order(got, keys) if keys else slice(None)
+    ow = _rows_order(want, keys) if keys else slice(None)
+    for col in want:
+        gd, gv = got[col][0][og], got[col][1][og]
+        wd, wv = want[col][0][ow], want[col][1][ow]
+        if not np.array_equal(gv, wv):
+            raise AssertionError(f"{label}: {col} NULLs differ at {np.flatnonzero(gv != wv)[:5]}")
+        gd, wd = gd[wv], wd[wv]
+        if col in floats:
+            bad = ~(np.abs(gd.astype(np.float64) - wd) <= TPCH_REL * np.abs(wd))
+        else:
+            bad = gd != wd
+        if bad.any():
+            i = np.flatnonzero(bad)[:3]
+            raise AssertionError(f"{label}: {col} differs at {i}: {gd[i]} vs {wd[i]}")
+
+
+def _partition_starts(*sorted_keys) -> tuple:
+    """(each sorted row's partition start, partition end) for partitions of
+    equal leading keys."""
+    n = len(sorted_keys[0])
+    new = np.zeros(n, bool)
+    new[:1] = True
+    for k in sorted_keys:
+        new[1:] |= k[1:] != k[:-1]
+    idx = np.arange(n)
+    start = np.maximum.accumulate(np.where(new, idx, 0))
+    end_mark = np.r_[new[1:], True]
+    end = np.minimum.accumulate(np.where(end_mark, idx, n)[::-1])[::-1]
+    return start, end
+
+
+def window_oracles(d: dict) -> dict:
+    """Each window query's full result over the generator's arrays, in
+    numpy, as {column: (values, valid)}: decimals as their scaled integers,
+    dates as day numbers, as the engine stores them."""
+    o, li = d["orders"], d["lineitem"]
+    ones = lambda n: np.ones(n, bool)  # noqa: E731
+    out = {}
+
+    ck, ok, price = o["o_custkey"], o["o_orderkey"], _dec(o["o_totalprice"])
+    order = np.lexsort((ok, -price, ck))
+    cs, ps = ck[order], price[order]
+    pstart, _ = _partition_starts(cs)
+    peer_start, _ = _partition_starts(cs, ps)
+    peers = np.cumsum(peer_start == np.arange(len(cs)))
+    n = len(cs)
+    out["W1"] = {"o_custkey": (cs, ones(n)), "o_orderkey": (ok[order], ones(n)),
+                 "o_totalprice": (ps, ones(n)), "rk": (peer_start - pstart + 1, ones(n)),
+                 "drk": (peers - peers[pstart] + 1, ones(n))}
+
+    sk, lok, ln, sd = li["l_suppkey"], li["l_orderkey"], li["l_linenumber"], li["l_shipdate"]
+    ep, qty = _dec(li["l_extendedprice"]), _dec(li["l_quantity"])
+    order = np.lexsort((ln, lok, sd, sk))
+    s = np.cumsum(ep[order])
+    pstart, _ = _partition_starts(sk[order])
+    n = len(order)
+    out["W2"] = {"l_suppkey": (sk[order], ones(n)), "l_orderkey": (lok[order], ones(n)),
+                 "l_linenumber": (ln[order], ones(n)), "l_shipdate": (sd[order], ones(n)),
+                 "cume": (s - s[pstart] + ep[order][pstart], ones(n))}
+
+    pk = li["l_partkey"]
+    order = np.lexsort((ln, lok, sd, pk))
+    q, p = qty[order], ep[order]
+    pstart, pend = _partition_starts(pk[order])
+    idx = np.arange(n)
+    lo, hi = np.maximum(idx - 3, pstart), np.minimum(idx + 3, pend)
+    qs = np.r_[0.0, np.cumsum(q / 100.0)]
+    mn, mx = q.copy(), q.copy()
+    for sh in range(-3, 4):
+        j = np.clip(idx + sh, 0, n - 1)
+        inside = (idx + sh >= lo) & (idx + sh <= hi)
+        mn = np.where(inside, np.minimum(mn, q[j]), mn)
+        mx = np.where(inside, np.maximum(mx, q[j]), mx)
+    has_prev, has_next = idx > pstart, idx < pend
+    out["W3"] = {"l_partkey": (pk[order], ones(n)), "l_orderkey": (lok[order], ones(n)),
+                 "l_linenumber": (ln[order], ones(n)),
+                 "avg_q": ((qs[hi + 1] - qs[lo]) / (hi - lo + 1), ones(n)),
+                 "min_q": (mn, ones(n)), "max_q": (mx, ones(n)),
+                 "prev_p": (np.where(has_prev, p[np.clip(idx - 1, 0, n - 1)], 0), has_prev),
+                 "next_p": (np.where(has_next, p[np.clip(idx + 1, 0, n - 1)], 0), has_next)}
+
+    day = o["o_orderdate"].astype(np.int64)
+    order = np.lexsort((ok, day, ck))
+    key = ck[order].astype(np.int64) * (1 << 20) + day[order]
+    lo = np.searchsorted(key, key - 90, "left")
+    hi = np.searchsorted(key, key, "right")
+    c = np.r_[0, np.cumsum(price[order])]
+    m = len(order)
+    out["W4"] = {"o_custkey": (ck[order], ones(m)), "o_orderkey": (ok[order], ones(m)),
+                 "d": (day[order], ones(m)), "o_totalprice": (price[order], ones(m)),
+                 "spend90": (c[hi] - c[lo], ones(m))}
+
+    modes = np.array(sorted(set(li["l_shipmode"])), dtype=object)
+    mi = np.searchsorted(modes.astype(str), li["l_shipmode"].astype(str))
+    days = np.arange(8036, 10562)
+    di = li["l_shipdate"].astype(np.int64) - 8036
+    inside = (di >= 0) & (di < len(days))
+    sums = np.zeros((len(modes), len(days) + 1), np.int64)
+    cnts = np.zeros((len(modes), len(days) + 1), np.int64)
+    np.add.at(sums, (mi[inside], di[inside] + 1), ep[inside])
+    np.add.at(cnts, (mi[inside], di[inside] + 1), 1)
+    cs, cc = np.cumsum(sums, 1), np.cumsum(cnts, 1)
+    j = np.arange(1, len(days) + 1)
+    s7 = cs[:, j] - cs[:, np.maximum(j - 7, 0)]
+    c7 = cc[:, j] - cc[:, np.maximum(j - 7, 0)]
+    out["R1"] = {"l_shipmode": (np.repeat(modes, len(days)), ones(s7.size)),
+                 "day": (np.tile(days, len(modes)), ones(s7.size)),
+                 "s7": (s7.reshape(-1), c7.reshape(-1) > 0)}
+    return out
+
+
+WINDOW_FLOATS = {"avg_q"}
+
+
+def timed_rows(name: str, full: dict) -> dict:
+    """The rows of a timed form (its filter, ORDER BY and LIMIT 100) from
+    the full form's rows."""
+    if name == "R1":
+        return full
+    keep = np.ones(len(full[next(iter(full))][0]), bool)
+    if name == "W1":
+        keep = full["rk"][0] <= 3
+    order = np.lexsort(tuple(full[c][0] for c, _ in reversed(WINDOW_TIMED_ORDER[name])))
+    order = order[keep[order]][:100]
+    return {c: (v[order], m[order]) for c, (v, m) in full.items()}
+
+
+def window_check(cpu, gpu) -> dict:
+    """SF 0.1: each window query's full and timed forms on the card equal
+    the port's on the CPU over the same tables; returns which timed forms
+    the CPU makes one unit (three collects), which the card must capture."""
+    twins = {}
+    for name in WINDOW_QUERIES:
+        nrows = []
+        for timed in (False, True):
+            sql = window_sql(name, timed)
+            want = table_arrays(cpu.sql(sql).collect())
+            nrows.append(len(want[next(iter(want))][0]))
+            for i in range(3):
+                check_arrays(f"{name}{' timed' if timed else ''} SF{TPCH_CHECK_SF} card run {i + 1} vs "
+                             f"CPU", table_arrays(gpu.sql(sql).collect()), want, None, WINDOW_FLOATS)
+            if timed:
+                for _ in range(2):
+                    cpu.sql(sql).collect()
+                twins[name] = whole_query(cpu).is_program
+        log(f"[window] {name} SF{TPCH_CHECK_SF}: the card's rows equal the CPU's (full form "
+            f"{nrows[0]} rows, timed form {nrows[1]}) in the cold run, the check and a replay; CPU "
+            f"twin {'one unit' if twins[name] else 'node by node'}")
+    return twins
+
+
+def phase_window(name_power: str, ctx, oracles: dict, twins: dict) -> None:
+    """W1-W4 and R1 at SF1 on the TPC-H context: the full form once against
+    its numpy oracle (peak memory above what was allocated); the timed form
+    in the cold run, the check and the capture against the oracle's rows;
+    a graph where the CPU twin is one unit (W1-W3 must capture); warm
+    medians of the three paths in turns, syncs per warm run, decode, a
+    profiled replay and eager run, peak memory."""
+    for name in WINDOW_QUERIES:
+        want = oracles[name]
+        full = window_sql(name, False)
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        got = table_arrays(ctx.sql(full).collect())
+        full_ms = (time.perf_counter() - t0) * 1e3
+        full_peak = torch.cuda.max_memory_allocated() / 2**20
+        check_arrays(f"{name} SF{SF} full form vs numpy oracle", got, want,
+                     WINDOW_QUERIES[name][2], WINDOW_FLOATS)
+        nfull = len(got[next(iter(got))][0])
+        del got
+        sql = window_sql(name, True)
+        twant = timed_rows(name, want)
+        secs = []
+        for _ in range(3):  # cold, check, capture and replay
+            t0 = time.perf_counter()
+            out = ctx.sql(sql).collect()
+            check_arrays(f"{name} SF{SF} timed form vs numpy oracle", table_arrays(out), twant,
+                         None, WINDOW_FLOATS)
+            secs.append((time.perf_counter() - t0) * 1e3)
+        wq = whole_query(ctx)
+        if twins[name] or name in WINDOW_CAPTURE:
+            require_capture(f"{name} SF{SF}", wq)
+        runs = warm_paths(lambda: ctx.sql(sql).collect().to_pydict(), WINDOW_BATCHES)
+        syncs = warm_syncs(lambda: ctx.sql(sql).collect(), lambda t: t.to_pydict())
+        dec = decode_ms(lambda: ctx.sql(sql).collect())
+        base2 = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        ctx.sql(sql).collect().to_pydict()
+        torch.cuda.synchronize()
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        if wq.graph is not None:
+            prof = profiled_replay(lambda: ctx.sql(sql).collect().to_pydict(), name, 0)
+        else:
+            prof = profile_run(lambda: ctx.sql(sql).collect().to_pydict())
+        with path("eager"):
+            eager = profile_run(lambda: ctx.sql(sql).collect().to_pydict())
+        log(f"[window] {name_power}: {name} SF{SF} full form ({nfull} rows) matches the numpy oracle, "
+            f"{full_ms:.3f} ms cold, peak memory {full_peak:.1f} MiB ({full_peak - base_mb:.1f} MiB above "
+            f"the {base_mb:.1f} MiB allocated); timed form ({len(twant[next(iter(twant))][0])} rows) "
+            f"matches it in the cold run, the check and the replay; {graph_state(wq)}; runs "
+            f"{['%.3f' % t for t in secs]} ms; {medians(runs)}; profiled replay "
+            f"{prof['profiled_wall_ms']:.3f} ms wall, kernel time {prof['kernel_ms']:.3f} ms in "
+            f"{prof['launches']} launches, device idle share {prof['idle_share']:.1%}; profiled eager run "
+            f"{eager['profiled_wall_ms']:.3f} ms wall, {eager['kernel_ms']:.3f} ms in {eager['launches']} "
+            f"launches, idle {eager['idle_share']:.1%}; host syncs per warm run {syncs[0]} "
+            f"(+{syncs[1]} to decode the result); decode {dec:.3f} ms; peak memory {peak_mb:.1f} MiB "
+            f"({peak_mb - base2:.1f} MiB above the {base2:.1f} MiB allocated before the run)")
+        for line in eager["top"][:6]:
+            log(f"[window]   {line}")
 
 
 def main() -> int:

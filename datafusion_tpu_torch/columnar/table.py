@@ -15,7 +15,6 @@ from __future__ import annotations
 import threading
 
 import numpy as np
-import pandas as pd
 import torch
 
 from ..device import resolve_device
@@ -157,6 +156,11 @@ class Table:
         return Table(names, cols, nrows, device=dev)
 
     @staticmethod
+    def from_pandas(df, dtypes: dict[str, DataType] | None = None, device=None) -> "Table":
+        """Build from a pandas DataFrame's columns (``from_pydict``)."""
+        return Table.from_pydict({c: df[c].to_numpy() for c in df.columns}, dtypes=dtypes, device=device)
+
+    @staticmethod
     def empty(schema: Schema, device=None) -> "Table":
         dev = resolve_device(device)
         cap = round_capacity(0)
@@ -174,7 +178,9 @@ class Table:
             n: c.to_pylist(self.nrows) for n, c in zip(self.names, self.columns)
         }
 
-    def to_pandas(self) -> pd.DataFrame:
+    def to_pandas(self):
+        import pandas as pd
+
         return pd.DataFrame(self.to_pydict())
 
     # ---- manipulation -------------------------------------------------------

@@ -291,11 +291,21 @@ class ExecutionContext:
         phys = planner.create_physical_plan(plan)
         rules = self.config.physical_optimizer_rules
         if not rules:
+            from ..physical.dedup import DeduplicateSubtrees, ShareCommonSubtrees
             from ..physical.fuse import FuseStages
+            from ..physical.sort_rules import EliminateRedundantSort, SortedAggregateRule
 
-            # the reference's sort rules and shared-subtree dedup are
-            # ported with the operators they rewrite (slice 5)
-            rules = [FuseStages()]
+            rules = [
+                SortedAggregateRule(),
+                EliminateRedundantSort(),
+                # views/CTEs used twice: merge the raw subtrees into one
+                # marked instance, so that fusion fences around them ...
+                ShareCommonSubtrees(),
+                FuseStages(),
+                # ... and merge the identical stage wrappers fusion then
+                # builds, so that the shared work runs once per query
+                DeduplicateSubtrees(),
+            ]
         for rule in rules:
             phys = rule.optimize(phys)
         return phys

@@ -119,6 +119,12 @@ class DataFrame:
         """Execute the plan on the context's device."""
         return self._ctx.collect(self._plan)
 
+    def collect_partitioned(self) -> list[Table]:
+        """Per-partition results (dataframe.rs collect_partitioned): one
+        device runs the plan as one partition.  The mesh form comes with
+        the multi-device slice."""
+        return [self.collect()]
+
     def to_pandas(self):
         return self.collect().to_pandas()
 

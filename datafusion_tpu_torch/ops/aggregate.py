@@ -156,25 +156,28 @@ class HashAggregateExec(ExecutionPlan):
             raise NotImplementedError(
                 "final-mode aggregation (merging partial states) is ported in slice 7"
             )
-        from ..physical.stage_compiler import _traced_aggregate
-
-        cap = t.capacity
-        alive = torch.arange(cap, device=t.device) < t.nrows_dev
-        out_d, out_v, n, meta = _traced_aggregate(self, t, alive, cap)
-        if self.mode != "partial":
-            # min/max over strings keep the argument's dictionary
-            dicts = {
-                a.name: a.expr.evaluate(t).dictionary
-                for a in self.aggr_expr
-                if a.fun in ("min", "max") and a.expr is not None
-            }
-            meta = [(nm, dt, dicts.get(nm, dic)) for nm, dt, dic in meta]
-        cols = [Column(dt, d, v, dic) for (nm, dt, dic), d, v in zip(meta, out_d, out_v)]
-        out = Table([nm for nm, _, _ in meta], cols, n, device=t.device)
+        out = self.aggregate(t, torch.arange(t.capacity, device=t.device) < t.nrows_dev)
         tgt = round_capacity(out.nrows)
         if tgt != out.capacity:
             out = out.with_capacity(tgt)
         return out
+
+    def aggregate(self, t: Table, alive) -> Table:
+        """This aggregate over the rows of ``t`` where ``alive`` holds, at
+        ``t``'s capacity (no shrink)."""
+        from ..physical.stage_compiler import _traced_aggregate
+
+        out_d, out_v, n, meta = _traced_aggregate(self, t, alive, t.capacity)
+        # min/max over strings keep the argument's dictionary, in their
+        # value or in their partial state's first column
+        dicts = {
+            (a.name if self.mode != "partial" else a.state_fields()[0][0]): a.expr.evaluate(t).dictionary
+            for a in self.aggr_expr
+            if a.fun in ("min", "max") and a.expr is not None
+        }
+        meta = [(nm, dt, dicts.get(nm, dic)) for nm, dt, dic in meta]
+        cols = [Column(dt, d, v, dic) for (nm, dt, dic), d, v in zip(meta, out_d, out_v)]
+        return Table([nm for nm, _, _ in meta], cols, n, device=t.device)
 
     def _display_line(self):
         return (
@@ -186,6 +189,25 @@ class HashAggregateExec(ExecutionPlan):
 # ---------------------------------------------------------------------------
 # helpers
 # ---------------------------------------------------------------------------
+
+
+def _group_rows(key_cols, alive):
+    """Sort the rows by their group keys, NULLs first and dead rows
+    (``alive`` False) last, and find the groups: (perm, ngroups, seg,
+    kvalids, n).  ``perm`` is the sort's permutation, ``seg`` the sorted
+    rows' Segments (each group's first row in sorted order is
+    ``seg.first``), ``kvalids`` the keys' valid masks with the dead rows
+    cleared and ``n`` the live rows.  The sort path of GROUP BY and the
+    rolling window's partitions share it."""
+    n = alive.sum()
+    ordkeys = tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in key_cols)
+    kvalids = tuple(c.valid & alive for c in key_cols)
+    nk = len(key_cols)
+    perm = K.lexsort_perm(ordkeys, kvalids, n, (False,) * nk, (True,) * nk, dead_mask=~alive)
+    gid, ngroups = K.group_ids_sorted(
+        tuple(k[perm] for k in ordkeys), tuple(v[perm] for v in kvalids), n
+    )
+    return perm, ngroups, K.segments(gid), kvalids, n
 
 
 def _neutral(ordk: torch.Tensor, f: str) -> torch.Tensor:
@@ -281,6 +303,83 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, seg: K.Segments, cap, alive,
         return [Column(FLOAT64, out, gvalid & ok)]
 
     raise PlanError(f"aggregate '{f}' not implemented")
+
+
+def merge_states(op: "HashAggregateExec", t: Table, alive) -> Table:
+    """Final values of ``op``'s aggregates from rows of its partial states
+    (``t``: group keys, then each aggregate's ``state_fields``), grouped by
+    the keys, over the rows where ``alive`` holds: the reference's
+    ``_execute_final`` and ``_merge_aggregate``.  DISTINCT aggregates have
+    no mergeable state and are refused."""
+    cap = t.capacity
+    dev = t.device
+    nk = len(op.group_expr)
+    key_cols = t.columns[:nk]
+    if key_cols:
+        perm, ngroups, seg, kvalids, n = _group_rows(key_cols, alive)
+    else:
+        n = alive.sum()
+        perm = K.sort_perm((~alive,))
+        ngroups = 1
+        seg = K.segments(torch.where(torch.arange(cap, device=dev) < n, 0, cap - 1))
+        kvalids = ()
+    alive_s = torch.arange(cap, device=dev) < n
+    gvalid = torch.arange(cap, device=dev) < ngroups
+    names = [nm for _, nm in op.group_expr]
+    cols = []
+    if key_cols:
+        kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, perm[seg.first])
+        cols = [Column(c.dtype, d, v & gvalid, c.dictionary) for c, d, v in zip(key_cols, kd, kv)]
+
+    def state(c):
+        return K.gather(c.data, perm), c.valid[perm] & alive_s
+
+    idx = nk
+    for a in op.aggr_expr:
+        if a.distinct:
+            raise PlanError(f"no mergeable partial state for DISTINCT {a.fun}")
+        st = t.columns[idx: idx + len(a.state_fields())]
+        idx += len(st)
+        f = a.fun
+        names.append(a.name)
+        if a.expr is None or f == "count":
+            d, va = state(st[0])
+            cols.append(Column(INT64, K.segment_sum(torch.where(va, d, 0), seg, cap), gvalid))
+            continue
+        if f in VARIANCE_FUNS:
+            (nn, nv), (ss1, _), (ss2, _) = state(st[0]), state(st[1]), state(st[2])
+            N = K.segment_sum(torch.where(nv, nn, 0), seg, cap)
+            out, ok = _finalize_var(
+                f, N, K.segment_sum(torch.where(nv, ss1, 0.0), seg, cap),
+                K.segment_sum(torch.where(nv, ss2, 0.0), seg, cap),
+            )
+            cols.append(Column(FLOAT64, out, gvalid & ok))
+            continue
+        d, _ = state(st[0])
+        c, cv = state(st[1])
+        cnt = K.segment_sum(torch.where(cv, c, 0), seg, cap)
+        if f == "sum":
+            rt = a.return_type()
+            acc = K.signed_view(d)
+            s_ = K.segment_sum(torch.where(cv, acc, torch.zeros((), dtype=acc.dtype, device=dev)), seg, cap)
+            cols.append(Column(rt, s_.view(d.dtype), gvalid & (cnt > 0)))
+        elif f == "avg":
+            s_ = K.segment_sum(torch.where(cv, d, 0.0), seg, cap)
+            cols.append(Column(FLOAT64, s_ / torch.clamp(cnt, min=1), gvalid & (cnt > 0)))
+        elif f in ("min", "max"):
+            t_in = st[0].dtype
+            has = cv & (c > 0)
+            ordk = d if t_in.is_float else K.orderable_key(d, t_in)
+            vals = torch.where(has, ordk, _neutral(ordk, f))
+            red = K.segment_min(vals, seg, cap) if f == "min" else K.segment_max(vals, seg, cap)
+            if t_in.is_float:
+                zero = signed_zeros(d, has, f)
+                red = zero_sign_fix(red, f, K.segment_sum(zero.to(torch.int64), seg, cap) > 0)
+            out = red.to(torch_dtype(t_in.storage_np_dtype()))
+            cols.append(Column(t_in, out, gvalid & (cnt > 0), st[0].dictionary))
+        else:
+            raise PlanError(f"merge for aggregate '{f}' not implemented")
+    return Table(names, cols, ngroups, device=dev)
 
 
 def signed_zeros(x: torch.Tensor, valid: torch.Tensor, f: str) -> torch.Tensor:

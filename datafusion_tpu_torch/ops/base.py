@@ -14,6 +14,8 @@ import threading
 import time
 from dataclasses import dataclass
 
+import torch
+
 from ..columnar.table import BUILD, Table
 from ..device import capturing
 from ..types import Schema
@@ -89,6 +91,7 @@ class ExecutionPlan:
         st.depth = depth + 1
         try:
             t0 = time.perf_counter_ns()
+            self.metrics.counter("executions").add(1)
             out = self._execute()
             # host time: kernels are queued asynchronously, so this times
             # the enqueue, not the device work
@@ -112,6 +115,17 @@ class ExecutionPlan:
 
     def _execute(self) -> Table:
         raise NotImplementedError
+
+    def lazy_metric(self, name: str, value) -> None:
+        """Add ``value`` to the counter ``name``.  A device count is summed
+        on the device and read when the metrics are harvested
+        (``collect_plan_metrics``), so recording it waits for nothing; a
+        graph's capture records nothing (its tensors hold no values)."""
+        if isinstance(value, int):
+            self.metrics.counter(name).add(value)
+        elif not capturing():
+            lazy = self.__dict__.setdefault("_lazy_metrics", {})
+            lazy[name] = lazy.get(name, 0) + value.to(torch.int64)
 
     # ---- hints for the planner/optimizer (OptimizerHints, mod.rs:129-139) --
     def output_sort_order(self) -> list | None:
@@ -144,6 +158,8 @@ def collect_plan_metrics(plan: ExecutionPlan, out=None) -> dict:
     if mo is not None:
         plan.metrics.counter("output_rows").add(mo.nrows)
         plan._metrics_out = None
+    for name, v in plan.__dict__.pop("_lazy_metrics", {}).items():
+        plan.metrics.counter(name).add(int(v))
     for name, m in plan.metrics.items():
         out.setdefault(f"{key}.{name}", 0)
         out[f"{key}.{name}"] += m.value

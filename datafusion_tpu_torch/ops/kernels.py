@@ -14,8 +14,8 @@ rows, cap-1 for the trailing dead rows), the invariant every grouping
 path produces.  Integer sums are one global cumsum read at the segment
 ends, exact mod 2^64 like the reference; float sums, minima and maxima are
 a segmented scan that restarts at each boundary, so each segment adds
-only its own values, in a fixed order (no cancellation, and the same
-result from run to run).  The segment bounds come from binary searches
+only its own values, in the reference's associative-scan order (the same
+bits as the reference, and from run to run).  The segment bounds come from binary searches
 over the sorted ids, once per grouping (``segments``), with no host sync.
 
 The join primitives hash the key columns (the reference's 64-bit mix,
@@ -287,19 +287,56 @@ def segments(gid: torch.Tensor) -> Segments:
     return Segments(gid, first, last, first[gid])
 
 
-def _segment_scan(values: torch.Tensor, seg: Segments, combine):
-    """Running within-segment reduction (restarts at boundaries): a
-    Hillis-Steele scan, log2(cap) passes, each row combining with the row
-    `d` back while that row lies in its segment."""
-    cap = values.shape[0]
-    pos = torch.arange(cap, device=values.device)
-    run = values
-    d = 1
-    while d < cap:
-        same = pos - d >= seg.start
-        run = torch.where(same, combine(torch.roll(run, d), run), run)
-        d *= 2
-    return run
+def assoc_scan(combine, elems: tuple) -> tuple:
+    """Inclusive scan of the tuple of equal-length tensors ``elems`` under
+    the associative ``combine(a_tuple, b_tuple)``, in the order of the
+    reference's ``jax.lax.associative_scan``: adjacent pairs are combined,
+    the halves scanned recursively and the even positions filled in.  A
+    float scan therefore adds in the reference's order and gives its bits."""
+    n = elems[0].shape[0]
+    if n < 2:
+        return elems
+    odd = assoc_scan(combine, combine(tuple(e[0:-1:2] for e in elems), tuple(e[1::2] for e in elems)))
+    rest = tuple(e[2::2] for e in elems)
+    even = combine(tuple(e[:-1] for e in odd) if n % 2 == 0 else odd, rest)
+    out = []
+    for e, ev, od in zip(elems, even, odd):
+        x = torch.empty_like(e)
+        x[0:1] = e[0:1]
+        x[2::2] = ev
+        x[1::2] = od
+        out.append(x)
+    return tuple(out)
+
+
+def _segment_scan(values: torch.Tensor, gid: torch.Tensor, combine) -> torch.Tensor:
+    """Running reduction within each run of equal sorted ``gid`` (restarts
+    at the boundaries): the reference's ``_segment_scan``, an associative
+    scan over (gid, value) pairs, with its order of operations."""
+
+    def comb(a, b):
+        return b[0], torch.where(a[0] == b[0], combine(a[1], b[1]), b[1])
+
+    return assoc_scan(comb, (gid, values))[1]
+
+
+def xla_minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise minimum as XLA computes it: NaN propagates, and -0.0 is
+    below 0.0 (torch returns either zero)."""
+    m = torch.minimum(a, b)
+    if not m.is_floating_point():
+        return m
+    neg = torch.signbit(a) | torch.signbit(b)
+    return torch.where(m == 0, torch.where(neg, -0.0, 0.0).to(m.dtype), m)
+
+
+def xla_maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Elementwise maximum as XLA computes it (0.0 above -0.0)."""
+    m = torch.maximum(a, b)
+    if not m.is_floating_point():
+        return m
+    pos = ((a == 0) & ~torch.signbit(a)) | ((b == 0) & ~torch.signbit(b))
+    return torch.where(m == 0, torch.where(pos, 0.0, -0.0).to(m.dtype), m)
 
 
 def _wrap_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -309,7 +346,7 @@ def _wrap_to(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def segment_sum(values: torch.Tensor, seg: Segments, num_segments: int):
     if values.is_floating_point():
-        out = _segment_scan(values, seg, torch.add)[seg.last]
+        out = _segment_scan(values, seg.gid, torch.add)[seg.last]
     else:
         # exact for ints, mod 2^64: one global cumsum, read after each
         # segment's last row minus before its first
@@ -321,11 +358,11 @@ def segment_sum(values: torch.Tensor, seg: Segments, num_segments: int):
 
 
 def segment_min(values: torch.Tensor, seg: Segments, num_segments: int):
-    return _segment_scan(values, seg, torch.minimum)[seg.last][:num_segments]
+    return _segment_scan(values, seg.gid, torch.minimum)[seg.last][:num_segments]
 
 
 def segment_max(values: torch.Tensor, seg: Segments, num_segments: int):
-    return _segment_scan(values, seg, torch.maximum)[seg.last][:num_segments]
+    return _segment_scan(values, seg.gid, torch.maximum)[seg.last][:num_segments]
 
 
 # ---------------------------------------------------------------------------
@@ -538,6 +575,49 @@ class _SpecExact:
 
 def spec_exact() -> _SpecExact:
     return _SpecExact()
+
+
+def fit_learned(t, learned: dict, key):
+    """``t`` right-sized without a host read once its capacity is learned.
+    Outside a speculation window, or on the first run, one count sync
+    sizes the buffers to ``round_capacity`` and teaches ``learned[key]``;
+    inside one, later runs truncate to the learned capacity and record an
+    overflow flag (a count the host holds needs neither)."""
+    from ..columnar.table import Table, round_capacity
+
+    n = t.nrows_dev
+    cap = learned.get(key)
+    if cap is not None and spec_active() and not isinstance(n, int):
+        if cap < t.capacity:
+            spec_record(n > cap)
+            t = Table(t.names, [c.with_capacity(cap) for c in t.columns],
+                      torch.clamp(n, max=cap), device=t.device)
+        t._cap_learned = True
+        return t
+    tgt = round_capacity(t.nrows)  # one count sync
+    if len(learned) > 64:
+        learned.clear()
+    learned[key] = tgt
+    return t.with_capacity(tgt) if tgt < t.capacity else t
+
+
+def learned_count(n, learned: dict, key, fit=None) -> int:
+    """A host bound for the device count ``n``: outside a speculation
+    window, or on the first run, ``n`` read on the host (and ``fit(n)``
+    learned, ``n`` itself without ``fit``); inside one, the learned bound,
+    with an overflow flag when ``n`` exceeds it."""
+    cap = learned.get(key)
+    if cap is not None and spec_active() and not isinstance(n, int):
+        spec_record(n > cap)
+        return cap
+    if not isinstance(n, int):
+        from ..columnar.table import host_values
+
+        n = host_values(n)
+    if len(learned) > 64:
+        learned.clear()
+    learned[key] = fit(n) if fit is not None else n
+    return learned[key]
 
 
 def keep_index(keep: torch.Tensor, out_cap: int) -> torch.Tensor:

@@ -5,9 +5,11 @@ stage) in a TailStageExec.
 
 Port of ``datafusion_tpu/physical/fuse.py``.  Scan-rooted stages are
 cached across queries by a structural signature (plan shape + source
-column dtypes, capacities and dictionaries).  The reference's morsel
-stages over host tables (slice 6), its fused windows and its fences around
-shared subtrees (slice 5) are not ported yet.
+column dtypes, capacities and dictionaries).  A window (WindowAggExec)
+fuses where an aggregate would.  A subtree that ShareCommonSubtrees
+(physical/dedup.py) marked as shared is a stage boundary: both of its
+users see the same node, so its result memo is reused.  The reference's
+morsel stages over host tables come with the file-source slice.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ from ..ops.base import ExecutionPlan
 from ..ops.basic import FilterExec, GlobalLimitExec, MemoryExec, ProjectionExec
 from ..ops.join import SHRINK_SYNC_MIN_CAP
 from ..ops.sort import SortExec
+from ..ops.window import WindowAggExec
 from .stage_compiler import CompiledStage, compilable, node_jit_safe
 
 _STAGE_CACHE: dict = {}
@@ -110,25 +113,30 @@ class TailStageExec(ExecutionPlan):
 def _fusable_chain(plan: ExecutionPlan):
     """Longest fusable prefix (the grammar of `compilable`, any source).
     Returns (chain_top_to_bottom, source_below) or (None, None)."""
+
+    def ok(n):
+        # a shared subtree is a stage boundary; the shared node itself
+        # (n is plan) may still head its own chain
+        return node_jit_safe(n) and (n is plan or not getattr(n, "_dedup_shared", False))
+
     chain = []
     node = plan
-    if isinstance(node, GlobalLimitExec):
+    if isinstance(node, GlobalLimitExec) and ok(node):
         chain.append(node)
         node = node.input
-    if isinstance(node, SortExec) and node_jit_safe(node):
+    if isinstance(node, SortExec) and ok(node):
         chain.append(node)
         node = node.input
-    while isinstance(node, ProjectionExec) and node_jit_safe(node):
+    while isinstance(node, ProjectionExec) and ok(node):
         chain.append(node)
         node = node.input
-    if (
-        isinstance(node, HashAggregateExec)
-        and node.mode in ("single", "partial")
-        and node_jit_safe(node)
-    ):
+    if isinstance(node, HashAggregateExec) and node.mode in ("single", "partial") and ok(node):
         chain.append(node)
         node = node.input
-    while isinstance(node, (FilterExec, ProjectionExec)) and node_jit_safe(node):
+    elif isinstance(node, WindowAggExec) and ok(node):
+        chain.append(node)
+        node = node.input
+    while isinstance(node, (FilterExec, ProjectionExec)) and ok(node):
         chain.append(node)
         node = node.input
     return (chain, node) if chain else (None, None)

@@ -4,12 +4,9 @@ Port of ``datafusion_tpu/physical/planner.py`` (reference:
 datafusion/src/physical_plan/planner.rs, create_initial_plan :341):
 recursively maps logical nodes to physical operators, and
 create_physical_expr binds expressions to input schemas by column index.
-Nodes and expressions outside the ported slices raise PlanError naming
-the slice that ports them (windows, extension nodes but CrossJoinAgg, and
-user-defined functions: 5).  A CrossJoinAgg node (the reference's
-FoldCrossJoinAggregate rule) is planned as the aggregate over the
-filtered cross join it folds; the reference's tiled CrossJoinAggExec
-comes with slice 5.
+Extension nodes go to the extension planners (ROLLING_WINDOW and
+CrossJoinAgg); user-defined functions raise PlanError naming the slice
+that ports them.
 
 Naming contract: a physical Table's column names are the *qualified* names
 of the producing logical node's DFSchema, so column lookup inside operators
@@ -21,7 +18,6 @@ from __future__ import annotations
 from ..errors import PlanError
 from ..logical import plan as L
 from ..logical.dfschema import DFSchema
-from ..logical.joinagg import CrossJoinAgg
 from ..logical.expr import (
     AggregateFunction,
     Alias,
@@ -43,6 +39,7 @@ from ..logical.expr import (
     ScalarFunction,
     ScalarSubquery,
     SortExpr,
+    WindowFunction,
 )
 from ..exprs import physical as P
 from ..ops.aggregate import HashAggregateExec, PhysAggExpr
@@ -59,6 +56,7 @@ from ..ops.basic import (
     UnionExec,
 )
 from ..ops.sort import PhysSortExpr, SortExec
+from ..ops.window import PhysWindowExpr, WindowAggExec
 from ..types import Field, Schema
 
 
@@ -72,10 +70,16 @@ class PhysicalPlanner:
 
 
 class DefaultPhysicalPlanner(PhysicalPlanner):
-    def __init__(self, device=None):
+    def __init__(self, device=None, extension_planners: list | None = None):
         # the device that operators creating tables (EMPTY, VALUES,
         # EXPLAIN) put them on
         self.device = device
+        if extension_planners is None:
+            from .joinagg_planner import CrossJoinAggPlanner
+            from .rolling_planner import RollingWindowPlanner
+
+            extension_planners = [RollingWindowPlanner(), CrossJoinAggPlanner()]
+        self.extension_planners = extension_planners
 
     # ==================================================================
     def create_physical_plan(self, plan: L.LogicalPlan) -> ExecutionPlan:
@@ -113,7 +117,7 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             return self._plan_aggregate(plan)
 
         if isinstance(plan, L.Window):
-            raise _not_ported("Window", 5)
+            return self._plan_window(plan)
 
         if isinstance(plan, L.Sort):
             input_exec = self.create_physical_plan(plan.input)
@@ -201,9 +205,11 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             return ExplainExec(plan.schema().to_schema(), rows, self.device)
 
         if isinstance(plan, L.Extension):
-            if isinstance(plan.node, CrossJoinAgg):
-                return self._plan_cross_join_agg(plan.node)
-            raise _not_ported(type(plan.node).__name__, 5)
+            for ep in self.extension_planners:
+                out = ep.plan_extension(plan.node, self)
+                if out is not None:
+                    return out
+            raise PlanError(f"no extension planner for {plan.node}")
 
         raise PlanError(f"cannot plan {t.__name__}")
 
@@ -243,19 +249,6 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
             filt = create_physical_expr(plan.filter, ls.join(rs))
         return HashJoinExec(left_exec, right_exec, on, plan.join_type, filt)
 
-    def _plan_cross_join_agg(self, node: CrossJoinAgg) -> ExecutionPlan:
-        """Aggregate(Filter?(CrossJoin)): the expressions bind to the joined
-        schema, as the reference's CrossJoinAggPlanner binds them."""
-        joined = node.join_schema()
-        input_exec = CrossJoinExec(
-            self.create_physical_plan(node.left), self.create_physical_plan(node.right)
-        )
-        if node.condition is not None:
-            input_exec = FilterExec(create_physical_expr(node.condition, joined), input_exec)
-        return self._aggregate_exec(
-            input_exec, joined, node.schema().fields, node.group_expr, node.aggr_expr
-        )
-
     def _plan_aggregate(self, plan: L.Aggregate) -> ExecutionPlan:
         return self._aggregate_exec(
             self.create_physical_plan(plan.input), plan.input.schema(),
@@ -279,6 +272,24 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
                 raise _not_ported("user-defined aggregate", 5)
             aggs.append(PhysAggExpr(e.fun, arg, f.qualified_name, e.distinct, udf))
         return HashAggregateExec("single", group, aggs, input_exec)
+
+    def _plan_window(self, plan: L.Window) -> ExecutionPlan:
+        input_exec = self.create_physical_plan(plan.input)
+        in_schema = plan.input.schema()
+        out_fields = plan.schema().fields
+        wexprs = []
+        for we, f in zip(plan.window_expr, out_fields[len(in_schema.fields):]):
+            e = we.expr if isinstance(we, Alias) else we
+            if not isinstance(e, WindowFunction):
+                raise PlanError(f"window expr expected, got {e!r}")
+            args = [create_physical_expr(a, in_schema) for a in e.args]
+            pby = [create_physical_expr(p, in_schema) for p in e.partition_by]
+            oby = [
+                PhysSortExpr(create_physical_expr(s.expr, in_schema), s.ascending, s.nulls_first)
+                for s in e.order_by
+            ]
+            wexprs.append(PhysWindowExpr(e.fun, args, pby, oby, f.qualified_name, f.dtype, e.frame))
+        return WindowAggExec(wexprs, input_exec)
 
 
 # ---------------------------------------------------------------------------

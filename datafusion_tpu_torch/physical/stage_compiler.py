@@ -41,6 +41,7 @@ from ..ops.aggregate import (
     PhysAggExpr,
     _eval_aggregate,
     _finalize_var,
+    _group_rows,
     _neutral,
     _to_float,
     signed_zeros,
@@ -50,6 +51,7 @@ from ..ops.base import ExecutionPlan
 from ..ops.basic import FilterExec, GlobalLimitExec, MemoryExec, ProjectionExec, clamp_rows
 from ..ops.smalldomain import MAX_COLS, smalldomain_sum_count
 from ..ops.sort import SortExec
+from ..ops.window import WindowAggExec
 
 # domain limit for the fused small-domain path (K1 takes up to 256 slots)
 FUSED_DOMAIN_LIMIT = 256
@@ -67,6 +69,11 @@ def node_exprs(node: ExecutionPlan):
         ]
     if isinstance(node, SortExec):
         return [s.expr for s in node.sort_exprs]
+    if isinstance(node, WindowAggExec):
+        out = []
+        for w in node.window_exprs:
+            out += list(w.args) + list(w.partition_by) + [s.expr for s in w.order_by]
+        return out
     return []
 
 
@@ -79,23 +86,27 @@ def node_jit_safe(node: ExecutionPlan) -> bool:
 def compilable(plan: ExecutionPlan) -> bool:
     """Is this subtree one fusable stage?
 
-    Shape: [Limit?] [Sort?] [Proj*] [Agg?] (Filter|Proj)* Memory."""
+    Shape: [Limit?] [Sort?] [Proj*] [Agg? | Window?] (Filter|Proj)* Memory.
+    A shared subtree (physical/dedup.py) is a stage boundary; the shared
+    node itself may still head its own stage."""
+
+    def ok(n):
+        return node_jit_safe(n) and (n is plan or not getattr(n, "_dedup_shared", False))
+
     node = plan
-    if isinstance(node, GlobalLimitExec):
+    if isinstance(node, GlobalLimitExec) and ok(node):
         node = node.input
-    if isinstance(node, SortExec) and node_jit_safe(node):
+    if isinstance(node, SortExec) and ok(node):
         node = node.input
-    while isinstance(node, ProjectionExec) and node_jit_safe(node):
+    while isinstance(node, ProjectionExec) and ok(node):
         node = node.input
-    if (
-        isinstance(node, HashAggregateExec)
-        and node.mode in ("single", "partial")
-        and node_jit_safe(node)
-    ):
+    if isinstance(node, HashAggregateExec) and node.mode in ("single", "partial") and ok(node):
         node = node.input
-    while isinstance(node, (FilterExec, ProjectionExec)) and node_jit_safe(node):
+    elif isinstance(node, WindowAggExec) and ok(node):
         node = node.input
-    return isinstance(node, MemoryExec)
+    while isinstance(node, (FilterExec, ProjectionExec)) and ok(node):
+        node = node.input
+    return isinstance(node, MemoryExec) and not getattr(node, "_dedup_shared", False)
 
 
 def _zeros(n: int, dtype, device) -> torch.Tensor:
@@ -213,29 +224,9 @@ class CompiledStage:
         if not shrink:
             return t
         # downstream operators run over capacity: right-size the buffers
-        # they will see.  The first run reads the count and learns the
-        # capacity (per input signature for a dynamic stage); inside a
-        # speculation window later runs truncate to it without a read and
-        # record an overflow flag, so that growth reruns exactly.  A count
-        # the host holds sizes the buffers, and teaches, without a read
-        key = self._cap_key(src)
-        learned = self._learned_caps.get(key)
-        if learned is not None and K.spec_active() and not isinstance(nout, int):
-            if learned < t.capacity:
-                K.spec_record(nout > learned)
-                t = Table(
-                    t.names, [c.with_capacity(learned) for c in t.columns],
-                    torch.clamp(nout, max=learned), device=src.device,
-                )
-            t._cap_learned = True
-            return t
-        tgt = round_capacity(t.nrows)  # one count sync
-        if len(self._learned_caps) > 64:
-            self._learned_caps.clear()
-        self._learned_caps[key] = tgt
-        if tgt < t.capacity:
-            t = t.with_capacity(tgt)
-        return t
+        # they will see, learning the capacity per input signature for a
+        # dynamic stage (``K.fit_learned``: growth flags and reruns exactly)
+        return K.fit_learned(t, self._learned_caps, self._cap_key(src))
 
     def _cap_key(self, src: Table):
         """What a dynamic stage's learned output capacity depends on besides
@@ -297,6 +288,16 @@ class CompiledStage:
                 t = Table([n for _, n in op.exprs], cols, 0, device=cpu)
             elif isinstance(op, (FilterExec, SortExec, GlobalLimitExec)):
                 pass  # schema/dictionaries unchanged
+            elif isinstance(op, WindowAggExec):
+                names, cols = list(t.names), list(t.columns)
+                for w in op.window_exprs:
+                    dic = None
+                    if w.args and w.fun in ("lag", "lead", "first_value", "last_value",
+                                            "nth_value", "min", "max"):
+                        dic = w.args[0].evaluate(t).dictionary
+                    names.append(w.name)
+                    cols.append(meta_col(w.dtype, dic))
+                t = Table(names, cols, 0, device=cpu)
             elif isinstance(op, HashAggregateExec):
                 key_cols = [e.evaluate(t) for e, _ in op.group_expr]
                 names = [n for _, n in op.group_expr]
@@ -394,6 +395,14 @@ class CompiledStage:
                     compact()
                 n = clamp_rows(n, op.n)
                 alive = torch.arange(cap, device=dev) < n
+            elif isinstance(op, WindowAggExec):
+                if not compacted:
+                    compact()
+                view = self._table_view(cur_d, cur_v, t)
+                names, cols = op._traced_window(view, n, cap)
+                cur_d = [c.data for c in cols]
+                cur_v = [c.valid for c in cols]
+                t = Table(names, cols, 0, device=dev)
             else:  # pragma: no cover
                 raise InternalError(f"unfusable op {type(op).__name__}")
 
@@ -468,15 +477,7 @@ def _sorted_aggregate(op, t, key_cols, alive, cap, emit_state):
     the sort yields a permutation, and only the keys and the aggregates'
     inputs are gathered by it."""
     dev = alive.device
-    n = alive.sum()
-    ordkeys = tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in key_cols)
-    kvalids = tuple(c.valid & alive for c in key_cols)
-    nk = len(key_cols)
-    perm = K.lexsort_perm(ordkeys, kvalids, n, (False,) * nk, (True,) * nk, dead_mask=~alive)
-    gid, ngroups = K.group_ids_sorted(
-        tuple(k[perm] for k in ordkeys), tuple(v[perm] for v in kvalids), n
-    )
-    seg = K.segments(gid)  # read by every reduction below
+    perm, ngroups, seg, kvalids, n = _group_rows(key_cols, alive)
     alive_sorted = torch.arange(cap, device=dev) < n
     gvalid_rows = torch.arange(cap, device=dev) < ngroups
     # each group's keys from its first row in sorted order

@@ -16,11 +16,16 @@ single-table slice, each shaped on a TPC-H query:
 ``linenumber`` (a GROUP BY over a small integer key, the small-domain
 path), ``distinct_supp`` (a grouped ``count(DISTINCT)``) and ``exprs``
 (EXTRACT, CASE and IN over a projection).
+
+``windows.py`` holds the window and rolling-window queries over the
+TPC-H tables (``WINDOW_QUERIES``, ``window_sql``).
 """
 
 from __future__ import annotations
 
 from pathlib import Path
+
+from .windows import WINDOW_QUERIES, window_sql  # noqa: F401
 
 _DIR = Path(__file__).resolve().parent
 

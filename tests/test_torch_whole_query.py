@@ -249,12 +249,24 @@ def tpch_contexts():
     return jctx, pctx
 
 
-@pytest.mark.parametrize("q", [1, 3, 6, 12, 18])
+# the plans that are one unit in the port and not in the JAX package, and
+# why: Q16's CrossJoinAggExec reads its inputs' row counts and each tile's
+# count on every run in the JAX package (ops/joinagg.py:93, :127), where
+# the port learns them on its first run; Q22's CrossJoinExec (the one-row
+# broadcast of the average balance) reads a count in the JAX package and
+# none in the port.  Q21 (not run here: its JAX programs take the longest
+# to compile) is one unit in both on these tables (seed 42); on the port's
+# seed-7 tables the JAX package never makes it one, by reference fault F9
+# (a join whose probe rows verify twice keeps overflowing)
+PORT_ONLY = {16, 22}
+
+
+@pytest.mark.parametrize("q", [1, 3, 4, 6, 12, 15, 16, 18, 22])
 def test_tpch_whole_query_engagement_matches_jax(q, tpch_contexts):
     """After the same three collects the port is one unit exactly where
-    the JAX package compiled one program, with its rows; the third
-    collect reads the host once (the flags' sum) or, for a flag-free plan,
-    never."""
+    the JAX package compiled one program (and also where ``PORT_ONLY``
+    says why not), with its rows; the third collect reads the host once
+    (the flags' sum) or, for a flag-free plan, never."""
     jctx, pctx = tpch_contexts
     for i in range(3):
         want = run_tpch(jctx, q).to_pydict()
@@ -268,8 +280,8 @@ def test_tpch_whole_query_engagement_matches_jax(q, tpch_contexts):
                 assert got[k] == pytest.approx(want[k], rel=1e-12), (q, k)
             else:
                 assert got[k] == want[k], (q, k)
-    assert _jax_program(jctx) == _port_program(pctx), (q, _wq(pctx).failure)
-    assert _port_program(pctx)
+    assert _jax_program(jctx) == (q not in PORT_ONLY), q
+    assert _port_program(pctx), (q, _wq(pctx).failure)
     assert syncs == (0 if q in FLAG_FREE else 1)
 
 
