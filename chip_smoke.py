@@ -85,7 +85,30 @@ Phases (each raises, and the script exits non-zero, on failure):
                one unit (W1-W3 must capture), and as in the tpch phase:
                warm medians of three paths, syncs, decode, a profiled
                replay and eager run (its top ops), peak memory
-The last two lines are the kernels JSON line and the ok JSON line.
+ 10. morsel  - TPC-H Q1 over a host-resident lineitem at SF10 (60,012,150
+               rows pinned in host memory, streamed in 58 morsels of 2^20
+               rows, datafusion_tpu_torch/datasource/host.py and
+               physical/morsel.py): every collect against the numpy oracle
+               and the same rows device-resident; K1 launched once per
+               morsel, and held against its plain version at the first
+               and the last (partial) morsel's inputs; warm collect times
+               beside the device-resident table's graph, bytes uploaded
+               and their rate beside a plain pinned copy of the same
+               bytes, host syncs per collect and per morsel, a profiled
+               collect's idle share and top device ops, pin and staging
+               times, peak memory
+ 11. morsel-tpch - the 22 TPC-H queries at SF1 with lineitem
+               host-resident against the device-resident tables: rows
+               equal; per query streamed or materialized, morsels, K1
+               launches and warm eager ms
+ 12. files   - SF1 lineitem written as a '|'-delimited .tbl file and read
+               by register_csv with a schema through the native loader
+               (asserted), Q1 and Q6 against the device-resident rows; a
+               Parquet round trip (device-resident and with morsel_rows=,
+               the row groups Q6's filter prunes) where pyarrow is
+               installed, else a line saying it did not run
+Each phase prints its seconds ([phase] lines).  The last two lines are the
+kernels JSON line and the ok JSON line.
 """
 
 from __future__ import annotations
@@ -144,6 +167,13 @@ EPOCH = datetime.date(1970, 1, 1)
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase_done(name: str, t0: float) -> float:
+    """Print a phase's seconds; returns the time the next phase starts."""
+    now = time.perf_counter()
+    log(f"[phase] {name}: {now - t0:.3f} s")
+    return now
 
 
 def card() -> str:
@@ -248,16 +278,18 @@ def q1_oracle(a: dict) -> dict:
         "avg_price": (price, 2),
         "avg_disc": (disc, 2),
     }
-    cnt = np.zeros(ng, np.int64)
-    np.add.at(cnt, g, 1)
+    cnt = np.bincount(g, minlength=ng)
     live = np.nonzero(cnt)[0]
     out = {
         "l_returnflag": [RETURNFLAGS[i // len(LINESTATUSES)] for i in live],
         "l_linestatus": [LINESTATUSES[i % len(LINESTATUSES)] for i in live],
     }
+    # each group's rows once (a stable sort), then exact int64 sums per run
+    order = np.argsort(g, kind="stable")
+    starts = np.r_[0, np.cumsum(cnt)[:-1]][live]
     for name, (v, scale) in vals.items():
         s = np.zeros(ng, np.int64)
-        np.add.at(s, g, v)
+        s[live] = np.add.reduceat(v[order], starts)
         if name.startswith("avg"):
             out[name] = [int(s[i]) / 10**scale / int(cnt[i]) for i in live]
         else:
@@ -299,11 +331,16 @@ class Recorder:
         return self.fn(gid, cols, masks, domain)
 
 
+def last_plan(ctx):
+    """The physical plan ``ctx`` ran last."""
+    plans = ctx._plan_cache
+    return plans[list(plans)[-1]]
+
+
 def whole_query(ctx):
     """The whole-query state of the plan ``ctx`` ran last
     (physical/query_compiler.py), or None."""
-    plans = ctx._plan_cache
-    return getattr(plans[list(plans)[-1]], "_whole_query", None) if plans else None
+    return getattr(last_plan(ctx), "_whole_query", None) if ctx._plan_cache else None
 
 
 def graph_state(wq) -> str:
@@ -1022,8 +1059,7 @@ def shared_executions(ctx, q: int) -> list:
     """How many times one eager collect of query q executes each node that
     shared-subtree deduplication marked (physical/dedup.py): once each, or
     the check fails (Q15's revenue0 view)."""
-    plan = ctx._plan_cache[list(ctx._plan_cache)[-1]]
-    seen, stack, shared = set(), [plan], []
+    seen, stack, shared = set(), [last_plan(ctx)], []
     while stack:
         node = stack.pop()
         if id(node) in seen:
@@ -1474,6 +1510,447 @@ def phase_window(name_power: str, ctx, oracles: dict, twins: dict) -> None:
             log(f"[window]   {line}")
 
 
+# ---------------------------------------------------------------------------
+# phase 10: Q1 over a host-resident lineitem at SF10, streamed in morsels
+# ---------------------------------------------------------------------------
+
+# TPC-H's SF100 lineitem cut to SF10 for the time limit; the reference's
+# DEFAULT_MORSEL_ROWS (datasource/host.py)
+MORSEL_SF = 10.0
+MORSEL_ROWS = 1 << 20
+MORSEL_RUNS = 7  # warm collects timed
+
+
+class EndsRecorder(Recorder):
+    """A Recorder that keeps only the first and the latest call (a morsel
+    loop calls K1 once per morsel)."""
+
+    def __call__(self, gid, cols, masks, domain):
+        out = super().__call__(gid, cols, masks, domain)
+        if len(self.calls) > 2:
+            del self.calls[1]
+        return out
+
+
+def plan_nodes(plan) -> list:
+    """Every node of a physical plan, the sources of fused stages included."""
+    from datafusion_tpu_torch.physical.fuse import StageExec
+
+    seen, stack, out = set(), [plan], []
+    while stack:
+        n = stack.pop()
+        if id(n) in seen:
+            continue
+        seen.add(id(n))
+        out.append(n)
+        stack.extend(n.children())
+        if isinstance(n, StageExec):
+            stack.append(n._source)
+    return out
+
+
+def host_scans(plan) -> tuple:
+    """(morsel stages, materialized host scans) of a plan: how its
+    host-resident tables are read."""
+    from datafusion_tpu_torch.datasource.host import HostMemoryExec
+    from datafusion_tpu_torch.physical.morsel import MorselJoinStageExec, MorselStageExec
+
+    nodes = plan_nodes(plan)
+    streamed = [n for n in nodes if isinstance(n, (MorselStageExec, MorselJoinStageExec))]
+    return streamed, [n for n in nodes if isinstance(n, HostMemoryExec)]
+
+
+def morsels_run(plan) -> int:
+    return sum(n.metrics.counter("morsels").value for n in host_scans(plan)[0])
+
+
+def sync_warnings(run) -> tuple:
+    """(result, number of synchronizing CUDA calls torch's sync check
+    reports) of one call of ``run``."""
+    import warnings
+
+    torch.cuda.set_sync_debug_mode("warn")
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            out = run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    return out, sum("synchroniz" in str(w.message) for w in caught)
+
+
+def pinned_copy_ms(host, iters: int = 3) -> float:
+    """The bound of a collect's uploads: one plain copy of every host
+    column (pinned) to the card, CUDA events, median of ``iters``."""
+    srcs = [torch.from_numpy(x) for x in host.datas + host.valids]
+    dsts = [torch.empty_like(x, device="cuda") for x in srcs]
+    times = []
+    for _ in range(iters):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for d, s in zip(dsts, srcs):
+            d.copy_(s, non_blocking=True)
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    del dsts
+    return statistics.median(times)
+
+
+def staging_ms(host) -> float:
+    """What two pinned staging sets would add per collect instead of pinning
+    once: a host copy of every morsel's bytes from pageable memory into a
+    pinned staging buffer (one morsel's worth, reused)."""
+    rows = host.morsel_rows
+    cols = [np.array(x) for x in host.datas + host.valids]  # pageable copies
+    stage = [torch.empty(rows, dtype=torch.from_numpy(c[:1]).dtype).pin_memory().numpy() for c in cols]
+    t0 = time.perf_counter()
+    for lo in range(0, host.nrows, rows):
+        for c, b in zip(cols, stage):
+            k = min(rows, host.nrows - lo)
+            b[:k] = c[lo:lo + k]
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_morsel(name_power: str) -> tuple:
+    """TPC-H Q1 over a host-resident lineitem at SF10 (58 morsels of 2^20
+    rows): every collect against the numpy oracle and the device-resident
+    table's rows, K1 launched once per morsel and held against its plain
+    version at the first and the last (partial) morsel's inputs; warm
+    timings beside the device-resident table's graph, bytes uploaded and
+    their rate against a plain pinned copy, host syncs, idle share and top
+    device ops of a profiled collect, pin and staging times, peak memory.
+    Returns (K1 launches of one collect, max abs error, checked inputs)."""
+    from datafusion_tpu_torch.q1data import _lineitem_table, lineitem_host_table
+
+    t0 = time.perf_counter()
+    a = lineitem_q1_arrays(MORSEL_SF, SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    want = q1_oracle(a)
+    oracle_s = time.perf_counter() - t0
+    host = lineitem_host_table(a, MORSEL_ROWS)  # pinned for the card
+    hctx = ExecutionContext()
+    hctx.register_host_table("lineitem", host)
+    sql = get_query_sql(1)
+    log(f"[morsel] lineitem SF{MORSEL_SF:g} host-resident: {host.nrows} rows, {host.num_morsels} morsels "
+        f"of {host.morsel_rows} rows, {host.nbytes / 2**30:.3f} GiB of data and masks in host memory; "
+        f"generated in {gen_s:.3f} s, numpy oracle {oracle_s:.3f} s, pinned once in "
+        f"{host.pin_seconds:.3f} s")
+
+    rec = EndsRecorder(stage_compiler.smalldomain_sum_count)
+    stage_compiler.smalldomain_sum_count = rec
+    runs = []
+    try:
+        for label in ("cold", "warm"):
+            SD.smalldomain_sum_count.launches = 0
+            t0 = time.perf_counter()
+            rows = hctx.sql(sql).collect().to_pydict()
+            runs.append((time.perf_counter() - t0) * 1e3)
+            launches = SD.smalldomain_sum_count.launches
+            check_q1(rows, want)
+            if launches != host.num_morsels:
+                raise AssertionError(f"Q1 SF{MORSEL_SF:g} host-resident {label} collect: K1 launched "
+                                     f"{launches} times, want once per morsel ({host.num_morsels})")
+    finally:
+        stage_compiler.smalldomain_sum_count = rec.fn
+    streamed, materialized = host_scans(last_plan(hctx))
+    if len(streamed) != 1 or materialized:
+        raise AssertionError(f"Q1 SF{MORSEL_SF:g}: the plan does not stream ({streamed}, {materialized})")
+    first, last = rec.calls[0], rec.calls[-1]
+    tail = host.nrows - (host.num_morsels - 1) * host.morsel_rows
+    if not bool((last[0][tail:] >= last[3]).all()):
+        raise AssertionError("Q1 SF10: the last morsel's tail rows are not dead in K1's input")
+    err = max(k1_check("q1-sf10-morsel-first-inputs", *first),
+              k1_check("q1-sf10-morsel-last-inputs", *last))
+    checked = ["q1-sf10-morsel-first-inputs", "q1-sf10-morsel-last-inputs"]
+    del rec, first, last
+
+    syncs = warm_syncs(lambda: hctx.sql(sql).collect(), lambda t: t.to_pydict())
+    res, warned = sync_warnings(lambda: hctx.sql(sql).collect())
+    _, warned_decode = sync_warnings(res.to_pydict)
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    torch.cuda.reset_peak_memory_stats()
+    walls = []
+    for _ in range(MORSEL_RUNS):
+        t0 = time.perf_counter()
+        out = hctx.sql(sql).collect()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    peak_mb = torch.cuda.max_memory_allocated() / 2**20
+    host_rows = out.to_pydict()
+    check_q1(host_rows, want)
+    prof = profile_run(lambda: hctx.sql(sql).collect().to_pydict(), 12)
+    bound_ms = pinned_copy_ms(host)
+    stage_ms = staging_ms(host)
+    wall = statistics.median(walls)
+    gbs = host.nbytes / wall / 1e6
+    log(f"[morsel] {name_power}: Q1 SF{MORSEL_SF:g} host-resident, every collect (cold {runs[0]:.3f} ms, "
+        f"warm {runs[1]:.3f} ms, {MORSEL_RUNS} timed) matches the numpy oracle (exact keys, counts and "
+        f"decimal sums; avgs rel 1e-12); K1 launched once per morsel ({host.num_morsels}) in the cold and "
+        f"the warm collect, and equals its plain version at the first and the last (partial) morsel's "
+        f"inputs")
+    log(f"[morsel] {name_power}: Q1 SF{MORSEL_SF:g} warm collect median {wall:.3f} ms over {MORSEL_RUNS} "
+        f"(runs {['%.3f' % w for w in walls]}); {host.nbytes} bytes uploaded per collect, "
+        f"{gbs:.3f} GB/s; plain pinned copy of the same bytes {bound_ms:.3f} ms "
+        f"({host.nbytes / bound_ms / 1e6:.3f} GB/s; the collect takes {wall / bound_ms:.2f}x it); "
+        f"host syncs per collect {syncs[0]} (+{syncs[1]} to decode), {syncs[0] / host.num_morsels:.3f} "
+        f"per morsel; synchronizing calls torch's sync check reports in a collect {warned} (+{warned_decode} "
+        f"to decode); peak "
+        f"device memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above the {base_mb:.1f} MiB "
+        f"allocated); pinned once {host.pin_seconds:.3f} s, against {stage_ms:.3f} ms per collect of "
+        f"host copies into a pinned staging morsel")
+    log(f"[profile] {name_power}: one warm Q1 SF{MORSEL_SF:g} host-resident collect (profiled) "
+        f"{prof['profiled_wall_ms']:.3f} ms wall, {prof['kernel_ms']:.3f} ms kernel time in "
+        f"{prof['launches']} launches, device idle share {prof['idle_share']:.1%}")
+    for line in prof["top"]:
+        log(f"[profile]   {line}")
+
+    # the same query over the same rows device-resident, one CUDA graph
+    dctx = ExecutionContext()
+    t0 = time.perf_counter()
+    dctx.register_table("lineitem", _lineitem_table(a, None))
+    torch.cuda.synchronize()
+    up_s = time.perf_counter() - t0
+    del a
+    for _ in range(3):  # cold, check, capture and replay
+        check_q1(dctx.sql(sql).collect().to_pydict(), want)
+    require_capture(f"Q1 SF{MORSEL_SF:g} device-resident", whole_query(dctx))
+    dev_rows = dctx.sql(sql).collect().to_pydict()
+    check_q1(host_rows, dev_rows)
+    graph = warm_runs(lambda: dctx.sql(sql).collect().to_pydict(), 1)
+    log(f"[morsel] {name_power}: Q1 SF{MORSEL_SF:g} device-resident (uploaded in {up_s:.3f} s): the "
+        f"host-resident rows equal its rows; graph replay median {statistics.median(graph):.3f} ms "
+        f"(runs {['%.3f' % r for r in graph]}); host-resident / device-resident "
+        f"{wall / statistics.median(graph):.2f}x")
+    morsels = host.num_morsels
+    del dctx, hctx, host
+    torch.cuda.empty_cache()
+    return morsels, err, checked
+
+
+# ---------------------------------------------------------------------------
+# phase 11: the 22 TPC-H queries at SF1 with lineitem host-resident
+# ---------------------------------------------------------------------------
+
+
+def host_lineitem_context(data: dict, morsel_rows: int, device=None):
+    """The TPC-H tables of ``data`` on ``device``, lineitem host-resident in
+    morsels of ``morsel_rows``."""
+    from datafusion_tpu_torch.datasource.host import HostTable
+
+    ctx = ExecutionContext(device=device)
+    tpchdata.register_tpch(ctx, {k: v for k, v in data.items() if k != "lineitem"})
+    li = tpchdata.tpch_table(data["lineitem"], "cpu")
+    ctx.register_host_table("lineitem", HostTable.from_table(li, morsel_rows, ctx.device))
+    return ctx
+
+
+def morsel_tpch(dctx, hctx, label: str, warm: int = 3) -> dict:
+    """Each TPC-H query on ``hctx`` (lineitem host-resident) against the
+    device-resident ``dctx`` run once: rows equal in the cold run and every
+    warm run; per query (streamed stages, materialized scans, morsels of
+    one collect, K1 launches of one collect, warm eager ms)."""
+    out = {}
+    for q in TPCH_QUERIES:
+        want = tpch_rows(run_tpch(dctx, q).to_pydict())
+        SD.smalldomain_sum_count.launches = 0
+        got = run_tpch(hctx, q).to_pydict()
+        k1 = SD.smalldomain_sum_count.launches
+        check_tpch(f"Q{q} {label} host-resident cold run vs device-resident", got, want, q in FULLY_ORDERED)
+        plan = last_plan(hctx)
+        streamed, materialized = host_scans(plan)
+        times = []
+        for _ in range(warm):
+            m0 = morsels_run(plan)
+            t0 = time.perf_counter()
+            res = run_tpch(hctx, q)
+            res.nrows
+            if hctx.device.type == "cuda":
+                torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            morsels = morsels_run(plan) - m0
+            check_tpch(f"Q{q} {label} host-resident warm run vs device-resident", res.to_pydict(), want,
+                       q in FULLY_ORDERED)
+        out[q] = (len(streamed), len(materialized), morsels, k1, statistics.median(times))
+    return out
+
+
+def phase_morsel_tpch(name_power: str) -> None:
+    """All 22 TPC-H queries at SF1, lineitem host-resident (morsels of
+    2^20 rows), against the device-resident tables: rows equal; per query,
+    streamed or materialized, morsels, K1 launches and warm eager ms; the
+    device memory of the materialized lineitem."""
+    t0 = time.perf_counter()
+    data = tpchdata.generate_tpch(SF, SEED)
+    dctx = ExecutionContext()
+    tpchdata.register_tpch(dctx, data)
+    hctx = host_lineitem_context(data, MORSEL_ROWS)
+    host = hctx._resolve_table("lineitem").host
+    del data
+    log(f"[morsel-tpch] SF{SF:g}: lineitem host-resident ({host.nrows} rows, {host.num_morsels} morsels, "
+        f"{host.nbytes / 2**30:.3f} GiB pinned in {host.pin_seconds:.3f} s), the other seven tables and "
+        f"a device-resident twin on the card; set up in {time.perf_counter() - t0:.3f} s")
+    with path("eager"):  # the device-resident rows from plans run node by node
+        info = morsel_tpch(dctx, hctx, f"SF{SF:g}")
+    for q, (ns, nm, morsels, k1, ms) in info.items():
+        how = (f"streamed by {ns} morsel stage{'s' if ns > 1 else ''}" if ns else "")
+        how += (", " if ns and nm else "") + (f"materialized ({nm} scan{'s' if nm > 1 else ''})" if nm else "")
+        log(f"[morsel-tpch] {name_power}: Q{q} SF{SF:g} rows equal the device-resident tables' in the cold "
+            f"run and 3 warm runs; {how or 'no lineitem scan'}; {morsels} morsels per collect; K1 "
+            f"launches {k1}; warm eager median {ms:.3f} ms")
+    mat = host._materialized
+    mib = 0.0 if mat is None else sum(c.data.nbytes + c.valid.nbytes for c in mat.columns) / 2**20
+    log(f"[morsel-tpch] {name_power}: streamed {sum(1 for v in info.values() if v[0])} queries, "
+        f"materialized lineitem in {sum(1 for v in info.values() if v[1])}; the materialized copy holds "
+        f"{mib:.1f} MiB on the card")
+    del dctx, hctx, host, mat
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phase 12: file sources
+# ---------------------------------------------------------------------------
+
+LINEITEM_TBL_COLUMNS = (  # (name, storage form) in file order
+    ("l_orderkey", "int"), ("l_suppkey", "int"), ("l_linenumber", "int"),
+    ("l_quantity", "dec2"), ("l_extendedprice", "dec2"), ("l_discount", "dec2"), ("l_tax", "dec2"),
+    ("l_returnflag", "flag"), ("l_linestatus", "status"), ("l_shipdate", "date"),
+)
+
+
+def _ascii_digits(v: np.ndarray, width: int) -> np.ndarray:
+    """Non-negative integers as zero-padded ASCII digits, (n, width) uint8."""
+    x = np.asarray(v, np.int64).copy()
+    if (x < 0).any():
+        raise ValueError("negative value in a fixed-width field")
+    out = np.empty((len(x), width), np.uint8)
+    for j in range(width - 1, -1, -1):
+        out[:, j] = x % 10 + 48
+        x //= 10
+    if x.any():
+        raise ValueError(f"a value is wider than {width} digits")
+    return out
+
+
+def write_tbl(path: str, a: dict) -> int:
+    """Write ``lineitem_arrays``' columns as a '|'-delimited TPC-H .tbl file
+    (a trailing delimiter, no header) with numpy: every field fixed-width,
+    numbers zero-padded, so the rows are one byte matrix.  Returns its
+    bytes."""
+    n = len(a["l_quantity"])
+    bar, nl = np.full((n, 1), ord("|"), np.uint8), np.full((n, 1), ord("\n"), np.uint8)
+    dot = np.full((n, 1), ord("."), np.uint8)
+    parts = []
+    for name, kind in LINEITEM_TBL_COLUMNS:
+        v = a[name]
+        if kind == "int":
+            parts.append(_ascii_digits(v, len(str(int(v.max())))))
+        elif kind == "dec2":
+            parts += [_ascii_digits(v // 100, len(str(int(v.max()) // 100))), dot, _ascii_digits(v % 100, 2)]
+        elif kind in ("flag", "status"):
+            letters = np.frombuffer("".join(RETURNFLAGS if kind == "flag" else LINESTATUSES).encode(), np.uint8)
+            parts.append(letters[v][:, None])
+        else:
+            s = np.datetime_as_string(v.astype("datetime64[D]")).astype("S10")
+            parts.append(np.frombuffer(s.tobytes(), np.uint8).reshape(n, 10))
+        parts.append(bar)
+    parts.append(nl)
+    rows = np.concatenate(parts, axis=1)
+    rows.tofile(path)
+    return rows.size
+
+
+def lineitem_tbl_schema():
+    from datafusion_tpu_torch.types import Field, Schema
+    from datafusion_tpu_torch.types.dtypes import DATE32, INT32, INT64, STRING, decimal
+
+    kinds = {"int": INT64, "dec2": decimal(15, 2), "flag": STRING, "status": STRING, "date": DATE32}
+    return Schema([Field(n, INT32 if n == "l_linenumber" else kinds[k]) for n, k in LINEITEM_TBL_COLUMNS])
+
+
+FILE_QUERIES = {"q1": get_query_sql(1), "q6": get_named_query("q6")}
+
+
+def files_check(tmp: str, a: dict, device=None, morsel_rows: int = MORSEL_ROWS, require_native=True) -> list:
+    """The file-source paths over ``a`` (``lineitem_arrays``), each query's
+    rows against the device-resident table's; returns printable lines."""
+    from datafusion_tpu_torch.q1data import _lineitem_table
+
+    dctx = ExecutionContext(device=device)
+    dctx.register_table("lineitem", _lineitem_table(a, dctx.device))
+    want = {k: tpch_rows(dctx.sql(q).collect().to_pydict()) for k, q in FILE_QUERIES.items()}
+    lines = []
+    tbl = os.path.join(tmp, "lineitem.tbl")
+    t0 = time.perf_counter()
+    nbytes = write_tbl(tbl, a)
+    write_s = time.perf_counter() - t0
+    fctx = ExecutionContext(device=device)
+    fctx.register_csv("lineitem", tbl, lineitem_tbl_schema(), has_header=False, delimiter="|")
+    prov = fctx._resolve_table("lineitem")
+    t0 = time.perf_counter()
+    prov.scan()
+    load_s = time.perf_counter() - t0
+    if require_native and prov.loader != "native":
+        from datafusion_tpu_torch import native_lib
+
+        raise AssertionError(f"the .tbl file was read by {prov.loader}, not the native loader "
+                             f"({native_lib.BUILD_ERROR})")
+    for k, q in FILE_QUERIES.items():
+        check_tpch(f"{k} over the .tbl file vs device-resident", fctx.sql(q).collect().to_pydict(),
+                   want[k], True)
+    lines.append(f".tbl file of {len(a['l_quantity'])} rows, {nbytes} bytes written with numpy in "
+                 f"{write_s:.3f} s; register_csv with a schema loaded it through the {prov.loader} loader "
+                 f"in {load_s:.3f} s; Q1 and Q6 equal the device-resident rows")
+    try:
+        import pyarrow  # noqa: F401
+    except ImportError:
+        lines.append("pyarrow is not installed: the Parquet round trip (register_parquet device-resident "
+                     "and with morsel_rows=, and Q6's row-group pruning) did not run")
+        return lines
+    pq_path = os.path.join(tmp, "lineitem.parquet")
+    t0 = time.perf_counter()
+    fctx.write_parquet(fctx.sql("SELECT * FROM lineitem ORDER BY l_shipdate"), pq_path)
+    write_s = time.perf_counter() - t0
+    pctx = ExecutionContext(device=device)
+    pctx.register_parquet("lineitem", pq_path)
+    mctx = ExecutionContext(device=device)
+    mctx.register_parquet("lineitem", pq_path, morsel_rows=morsel_rows)
+    for k, q in FILE_QUERIES.items():
+        for c, how in ((pctx, "device-resident"), (mctx, "host-resident")):
+            check_tpch(f"{k} over Parquet {how} vs device-resident", c.sql(q).collect().to_pydict(),
+                       want[k], True)
+    from datafusion_tpu_torch.logical.plan import TableScan
+    from datafusion_tpu_torch.physical.pruning import PruningPredicate
+
+    stack, filters = [pctx.optimize(pctx.sql(FILE_QUERIES["q6"]).logical_plan())], []
+    while stack:
+        node = stack.pop()
+        filters += node.filters if isinstance(node, TableScan) else []
+        stack.extend(node.inputs())
+    stats, groups = pctx._resolve_table("lineitem")._row_group_stats()
+    matched = int(PruningPredicate(filters).prune(stats).sum())
+    pruned = len(groups) - matched
+    host = mctx._resolve_table("lineitem").host
+    lines.append(f"Parquet written (sorted by l_shipdate) in {write_s:.3f} s; register_parquet "
+                 f"device-resident and with morsel_rows={morsel_rows} ({host.num_morsels} morsels) give "
+                 f"the device-resident rows for Q1 and Q6; Q6's filter pruned {pruned} of "
+                 f"{pruned + matched} row groups")
+    return lines
+
+
+def phase_files(name_power: str) -> None:
+    """SF1 lineitem written as a .tbl file and loaded with register_csv and
+    a schema through the native loader (asserted), Q1 and Q6 against the
+    device-resident rows; a Parquet round trip where pyarrow is installed."""
+    import tempfile
+
+    a = lineitem_arrays(SF, SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        for line in files_check(tmp, a):
+            log(f"[files] {name_power}: {line}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -1481,6 +1958,7 @@ def main() -> int:
     name_power = card()
     log(f"[device] {name_power}; torch {torch.__version__}, CUDA {torch.version.cuda}")
 
+    t_main = time.perf_counter()
     secs = build_all()
     for k, s in secs.items():
         log(f"[build] {k}: {s:.3f} s")
@@ -1490,6 +1968,7 @@ def main() -> int:
         log(f"[build]   SASS: {sass_ops(k)}")
 
     err = phase_kernels()
+    t_phase = phase_done("build and kernels", t_main)
 
     sql = get_query_sql(1)
     ctx, launches, args, captured = phase_main(sql, name_power)
@@ -1514,14 +1993,28 @@ def main() -> int:
     time_k1_cases(name_power, kname)
     del ctx, args  # the Q1 table and K1's inputs: the sql phase measures memory
     torch.cuda.empty_cache()
+    t_phase = phase_done("main and timing", t_phase)
 
     sql_launches, sql_err, sql_checked = phase_sql(name_power)
     err = max(err, sql_err)
+    t_phase = phase_done("sql", t_phase)
     phase_f4(name_power)
+    t_phase = phase_done("f4", t_phase)
     tpch_launches, tpch_err, tpch_checked = phase_tpch(name_power)
     err = max(err, tpch_err)
     sql_checked += tpch_checked
-    by_path = {"q1": launches, **sql_launches, **{k: n for k, n in tpch_launches.items() if n}}
+    t_phase = phase_done("tpch and window", t_phase)
+    morsel_launches, morsel_err, morsel_checked = phase_morsel(name_power)
+    err = max(err, morsel_err)
+    sql_checked += morsel_checked
+    t_phase = phase_done("morsel", t_phase)
+    phase_morsel_tpch(name_power)
+    t_phase = phase_done("morsel-tpch", t_phase)
+    phase_files(name_power)
+    phase_done("files", t_phase)
+    log(f"[phase] all phases: {time.perf_counter() - t_main:.3f} s")
+    by_path = {"q1": launches, **sql_launches, **{k: n for k, n in tpch_launches.items() if n},
+               "q1-sf10-host-resident-collect": morsel_launches}
 
     kernels = [{
         "name": "smalldomain_sum_count",

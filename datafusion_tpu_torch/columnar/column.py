@@ -4,7 +4,10 @@ Port of ``datafusion_tpu/columnar/column.py``: ``data`` is a torch tensor
 of the type's storage dtype and ``valid`` a bool tensor, both on the
 table's device.  Strings carry a host-side sorted StringDict (see
 dictionary.py).  Buffers are padded to a static capacity; the live-row
-count is tracked by the owning Table.
+count is tracked by the owning Table.  A fixed-size list column of k
+elements (``array(...)``) has data of shape (capacity, k), whose element
+nulls are in-band sentinels (``list_null_sentinel``), so every row
+gather, sort and compaction carries them along.
 """
 
 from __future__ import annotations
@@ -20,12 +23,37 @@ from ..types.dtypes import DataType
 from .dictionary import StringDict
 
 
+def list_null_sentinel(elem: DataType):
+    """In-band null sentinel for fixed-size-list ELEMENTS: NaN for floats,
+    INT_MIN for integer-backed types, code -1 for dictionary strings."""
+    st = elem.storage_np_dtype()
+    if np.issubdtype(st, np.floating):
+        return st.type(np.nan)
+    if elem.is_string:
+        return np.int32(-1)
+    if st == np.bool_:
+        return np.bool_(False)  # bool lists: nulls collapse to false
+    return st.type(np.iinfo(st).min)
+
+
+def list_element_valid(elem: DataType, data: np.ndarray) -> np.ndarray:
+    """Element-validity mask recovered from the in-band sentinels."""
+    st = elem.storage_np_dtype()
+    if np.issubdtype(st, np.floating):
+        return ~np.isnan(data)
+    if elem.is_string:
+        return data >= 0
+    if st == np.bool_:
+        return np.ones(data.shape, bool)
+    return data != np.iinfo(st).min
+
+
 @dataclass
 class Column:
     """One column: device data + device validity + logical type (+ dict)."""
 
     dtype: DataType
-    data: torch.Tensor  # shape (capacity,), storage dtype
+    data: torch.Tensor  # shape (capacity,), storage dtype; lists: (capacity, k)
     valid: torch.Tensor  # shape (capacity,), bool
     dictionary: StringDict | None = None  # strings only
     # host-known constant value when the column came from a literal; lets
@@ -54,12 +82,10 @@ class Column:
         capacity: int | None = None,
         device=None,
     ) -> "Column":
-        if dtype.is_list:
-            raise NotImplementedError("fixed-size list columns are ported in slice 5")
         n = len(data)
         cap = capacity if capacity is not None else n
         storage = dtype.storage_np_dtype()
-        buf = np.zeros(cap, dtype=storage)
+        buf = np.zeros((cap,) + np.shape(data)[1:], dtype=storage)
         buf[:n] = data.astype(storage, copy=False)
         v = np.zeros(cap, dtype=bool)
         if valid is None:
@@ -67,7 +93,7 @@ class Column:
         else:
             v[:n] = valid
         vrange = None
-        if storage.kind in "iu" and storage.itemsize == 8 and n > 0:
+        if buf.ndim == 1 and storage.kind in "iu" and storage.itemsize == 8 and n > 0:
             live = buf[:n][v[:n]]
             if live.size:
                 vrange = (int(live.min()), int(live.max()))
@@ -90,6 +116,24 @@ class Column:
     def to_pylist(self, nrows: int) -> list:
         """Decode to Python values (strings decoded, decimals rescaled)."""
         data, valid = self.to_numpy(nrows)
+        if self.dtype.is_list:
+            # element nulls are in-band sentinels, decoded per element
+            # position (reference array() -> FixedSizeList,
+            # array_expressions.rs:63)
+            k = self.dtype.list_size
+            ev = list_element_valid(self.dtype.elem, data)
+            elems = [
+                Column(
+                    self.dtype.elem,
+                    torch.from_numpy(np.ascontiguousarray(data[:, j])),
+                    torch.from_numpy(np.ascontiguousarray(ev[:, j])),
+                    self.dictionary,
+                ).to_pylist(nrows)
+                for j in range(k)
+            ]
+            if not k:
+                return [[] if ok else None for ok in valid]
+            return [list(vals) if ok else None for vals, ok in zip(zip(*elems), valid)]
         if self.dtype.is_string:
             assert self.dictionary is not None
             vals = self.dictionary.decode(data)
@@ -123,7 +167,7 @@ class Column:
             return self
         if capacity > cap:
             pad = capacity - cap
-            data = torch.cat([self.data, self.data.new_zeros(pad)])
+            data = torch.cat([self.data, self.data.new_zeros((pad,) + self.data.shape[1:])])
             valid = torch.cat([self.valid, self.valid.new_zeros(pad)])
         else:
             data = self.data[:capacity]
@@ -143,9 +187,10 @@ class Column:
 
 def zeros_column(dtype: DataType, capacity: int, device, dictionary=None) -> Column:
     """An all-NULL column of ``capacity`` rows."""
+    shape = (capacity, dtype.list_size) if dtype.is_list else (capacity,)
     return Column(
         dtype,
-        torch.zeros(capacity, dtype=torch_dtype(dtype.storage_np_dtype()), device=device),
+        torch.zeros(shape, dtype=torch_dtype(dtype.storage_np_dtype()), device=device),
         torch.zeros(capacity, dtype=torch.bool, device=device),
         dictionary,
     )

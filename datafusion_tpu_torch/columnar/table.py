@@ -161,6 +161,13 @@ class Table:
         return Table.from_pydict({c: df[c].to_numpy() for c in df.columns}, dtypes=dtypes, device=device)
 
     @staticmethod
+    def from_arrow(batch, device=None) -> "Table":
+        """Ingest a pyarrow Table or RecordBatch (``ingest.py``)."""
+        from .ingest import arrow_to_table
+
+        return arrow_to_table(batch, device)
+
+    @staticmethod
     def empty(schema: Schema, device=None) -> "Table":
         dev = resolve_device(device)
         cap = round_capacity(0)
@@ -182,6 +189,11 @@ class Table:
         import pandas as pd
 
         return pd.DataFrame(self.to_pydict())
+
+    def to_arrow(self):
+        from .ingest import table_to_arrow
+
+        return table_to_arrow(self)
 
     # ---- manipulation -------------------------------------------------------
     def shrink_to_fit(self, only_if_above: int = 0) -> "Table":

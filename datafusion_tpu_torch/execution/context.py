@@ -7,8 +7,11 @@ register_table, catalogs with optional information_schema, ExecutionConfig,
 variable providers.  ``collect`` runs optimize -> create_physical_plan ->
 execute, with a plan cache, inside a speculation window: a warm plan runs
 as one unit (``physical/query_compiler.py``), and an overflow of a
-speculative capacity reruns the query exactly.  File sources are ported in
-slice 6.
+speculative capacity reruns the query exactly.  Tables come from device
+Tables, host-resident tables streamed in morsels (``register_host_table``,
+datasource/host.py) and files (``register_csv``/``_parquet``/``_json``,
+``CREATE EXTERNAL TABLE``, datasource/files.py); results go out through
+``write_csv``/``write_parquet``.
 
 The context owns a device: ``ExecutionContext(device=None)`` runs on the
 CUDA card and raises where there is none; pass ``device="cpu"`` to run
@@ -165,10 +168,15 @@ class ExecutionContext:
         )
 
     def register_table(self, name: str, table) -> None:
-        """Register a Table (moved to the context's device) or a
-        TableProvider."""
+        """Register a Table (moved to the context's device), a HostTable
+        (kept in host memory for the context's device, streamed in
+        morsels) or a TableProvider."""
+        from ..datasource.host import HostTable, HostTableProvider
+
         if isinstance(table, Table):
             table = MemTable(table.to(self.device))
+        elif isinstance(table, HostTable):
+            table = HostTableProvider(table.to(self.device))
         if not isinstance(table, TableProvider):
             raise PlanError(f"cannot register {type(table)} as a table")
         self._default_schema().register_table(name, table)
@@ -188,10 +196,51 @@ class ExecutionContext:
         self._plan_cache.clear()
         self._catalog_version += 1
 
-    def register_csv(self, name: str, path: str, *args, **kwargs):
-        raise NotImplementedError("file sources are ported in slice 6")
+    def register_host_table(self, name: str, table, morsel_rows: int | None = None) -> None:
+        """Register a host-resident table: scans stream fixed-capacity
+        morsels through fused stages, so the table never has to fit on the
+        device (the reference's streamed scans, parquet.rs:596-636).  A
+        device Table is copied to host memory first; on the card the host
+        columns are pinned once, here."""
+        from ..datasource.host import HostTable, HostTableProvider
 
-    register_parquet = register_json = register_host_table = register_csv
+        if isinstance(table, Table):
+            table = HostTable.from_table(table)
+        if not isinstance(table, HostTable):
+            raise PlanError(f"cannot register {type(table)} as a host table")
+        table = table.to(self.device)
+        if morsel_rows is not None:
+            table.morsel_rows = int(morsel_rows)
+        self._default_schema().register_table(name, HostTableProvider(table))
+        self._catalog_changed()
+
+    def register_csv(self, name: str, path: str, schema=None, has_header: bool = True,
+                     delimiter: str = ","):
+        """A CSV (or ``|``-delimited TBL) file or directory.  With a schema
+        the native loader reads it, without pyarrow."""
+        from ..datasource.files import CsvFile
+
+        self.register_table(name, CsvFile(path, schema, has_header, delimiter, device=self.device))
+
+    def register_parquet(self, name: str, path: str, host_resident: bool = False,
+                         morsel_rows: int | None = None):
+        """A Parquet file or directory, on the device; ``host_resident`` (or
+        ``morsel_rows``) keeps its columns in host memory and streams
+        morsels instead, for a table larger than the device's memory."""
+        if host_resident or morsel_rows is not None:
+            from ..datasource.host import HostTable
+
+            self.register_host_table(name, HostTable.from_parquet(path, device=self.device),
+                                     morsel_rows=morsel_rows)
+            return
+        from ..datasource.files import ParquetTable
+
+        self.register_table(name, ParquetTable(path, device=self.device))
+
+    def register_json(self, name: str, path: str, schema=None):
+        from ..datasource.files import NdJsonFile
+
+        self.register_table(name, NdJsonFile(path, schema, device=self.device))
 
     def register_catalog(self, name: str, catalog: MemoryCatalogProvider):
         self.catalogs[name] = catalog
@@ -342,7 +391,15 @@ class ExecutionContext:
         return DataFrame(self, plan)
 
     def _execute_create_external(self, plan: CreateExternalTable):
-        raise NotImplementedError("file sources are ported in slice 6")
+        ft = plan.file_type.upper()
+        if ft == "CSV":
+            self.register_csv(plan.name, plan.location, plan.schema_, plan.has_header)
+        elif ft == "PARQUET":
+            self.register_parquet(plan.name, plan.location)
+        elif ft in ("NDJSON", "JSON"):
+            self.register_json(plan.name, plan.location, plan.schema_)
+        else:
+            raise PlanError(f"unsupported file type {plan.file_type}")
 
     # ---- execution ------------------------------------------------------------
     def collect(self, plan: LogicalPlan) -> Table:
@@ -370,6 +427,18 @@ class ExecutionContext:
         if len(display) == len(out.names):
             out = Table(display, out.columns, out.nrows_dev, device=out.device)
         return out
+
+
+    # ---- output (context.rs:492,530) ------------------------------------------
+    def write_csv(self, df, path: str):
+        import pyarrow.csv as pacsv
+
+        pacsv.write_csv(df.collect().to_arrow(), path)
+
+    def write_parquet(self, df, path: str):
+        import pyarrow.parquet as pq
+
+        pq.write_table(df.collect().to_arrow(), path)
 
 
 def _run(phys) -> Table:

@@ -3,8 +3,7 @@
 Port of ``datafusion_tpu/execution/dataframe.py`` (reference:
 datafusion/src/dataframe.rs + execution/dataframe_impl.rs:143):
 select/filter/aggregate/join/sort/limit/union/distinct/explain, terminal
-collect()/show().  Builders whose operators later slices port (joins,
-windows) plan fine and raise at collect(), naming the slice.
+collect()/show()/to_arrow() and write_csv()/write_parquet().
 """
 
 from __future__ import annotations
@@ -128,6 +127,9 @@ class DataFrame:
     def to_pandas(self):
         return self.collect().to_pandas()
 
+    def to_arrow(self):
+        return self.collect().to_arrow()
+
     def to_pydict(self) -> dict:
         return self.collect().to_pydict()
 
@@ -136,3 +138,9 @@ class DataFrame:
 
     def show(self, n: int = 20):
         print(self.limit(n).to_pandas().to_string(index=False))
+
+    def write_csv(self, path: str):
+        self._ctx.write_csv(self, path)
+
+    def write_parquet(self, path: str):
+        self._ctx.write_parquet(self, path)

@@ -5,8 +5,8 @@ Port of ``datafusion_tpu/exprs/physical.py`` to eager torch: each node
 evaluates as whole-column tensor ops on the table's device (reference
 equivalents in datafusion/src/physical_plan/expressions/: Column, Literal,
 BinaryExpr, CaseExpr, CastExpr/TryCastExpr, InListExpr,
-IsNull/IsNotNull/Not/Negative, LIKE).  User-defined scalar functions
-(``PhysScalarUDF``) are ported in slice 5.
+IsNull/IsNotNull/Not/Negative, LIKE) and user-defined scalar functions
+(``PhysScalarUDF``, udf.rs:38).
 
 String semantics ride on sorted dictionaries (columnar/dictionary.py):
 - col <op> col -> harmonize dictionaries (host merge), then an integer
@@ -931,3 +931,36 @@ class PhysScalarFunction(PhysicalExpr):
 
     def __repr__(self):
         return f"{self.name}({', '.join(map(repr, self.args))})"
+
+
+@dataclass
+class PhysScalarUDF(PhysicalExpr):
+    """A user-defined scalar function (udf.rs:38): the callable runs on the
+    arguments' data tensors (``functions/udf.py``); nulls propagate by AND
+    of the arguments' validities unless the UDF returns its own
+    (data, valid)."""
+
+    udf: object  # functions.udf.ScalarUDF
+    args: list[PhysicalExpr]
+
+    @property
+    def dtype(self) -> DataType:
+        return self.udf.return_type
+
+    def children(self):
+        return list(self.args)
+
+    def evaluate(self, table: Table) -> CVec:
+        cols = [a.evaluate(table) for a in self.args]
+        out = self.udf.fun(*[c.data for c in cols])
+        if isinstance(out, tuple):
+            data, valid = out
+        else:
+            data = out
+            valid = torch.ones(table.capacity, dtype=torch.bool, device=table.device)
+            for c in cols:
+                valid = valid & c.valid
+        return CVec(self.dtype, data.to(_tdt(self.dtype)), valid)
+
+    def __repr__(self):
+        return f"{self.udf.name}({', '.join(map(repr, self.args))})"

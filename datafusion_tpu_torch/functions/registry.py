@@ -12,7 +12,7 @@ reference's semantics kept as they are: ``log`` is ``log10`` and
 with one device gather; functions of several column arguments run once
 per distinct combination of values (found by a unique on the device).  Datetime functions are integer
 calendar arithmetic (functions/datetime_fns.py).  ``array`` builds a
-fixed-size list column, which is ported in slice 5.
+fixed-size list column (columnar/column.py).
 """
 
 from __future__ import annotations
@@ -325,8 +325,34 @@ def dispatch_scalar(
         refuse_in_whole_query("draws random() on the host")
         out = torch.from_numpy(np.random.rand(capacity)).to(device)
         return CVec(FLOAT64, out, torch.ones(capacity, dtype=torch.bool, device=device))
+    # ---- array constructor (array_expressions.rs:63 array_array) -------------
     if n == "array":
-        raise NotImplementedError("fixed-size list columns (array) are ported in slice 5")
+        from ..columnar.column import list_null_sentinel
+        from ..exprs.physical import cast_column, harmonize_strings
+
+        cols = list(args)
+        elem = out_dtype.elem
+        dic = None
+        if elem.is_string:
+            # fold every argument's dictionary into one, then remap each
+            # argument onto it (pairwise remaps would leave the earlier
+            # arguments on stale dictionaries)
+            acc = cols[0]
+            for c in cols[1:]:
+                acc, _ = harmonize_strings(acc, c)
+            cols = [harmonize_strings(acc, c)[1] for c in cols]
+            dic = acc.dictionary
+        else:
+            cols = [cast_column(c, elem, capacity) if c.dtype != elem else c for c in cols]
+        # the list is present for every live row; ELEMENT nulls (Arrow
+        # FixedSizeList child nulls) go in-band as sentinels, so they
+        # survive fused stages, gathers and sorts
+        sent = list_null_sentinel(elem).item()
+        data = torch.stack([
+            torch.where(c.valid, c.data, torch.full((), sent, dtype=c.data.dtype, device=c.data.device))
+            for c in cols
+        ], dim=1)
+        return CVec(out_dtype, data, torch.ones(capacity, dtype=torch.bool, device=device), dic)
 
     # ---- generic -----------------------------------------------------------
     if n == "nullif":

@@ -9,8 +9,11 @@ detection + cumsum, and every aggregate is a segment reduction
 compiler's aggregate (``physical.stage_compiler._traced_aggregate``): the
 no-group path, the small-domain path, whose sums and counts come from the
 hand-written kernel in ``ops/smalldomain.py``, and the sort path here.
-The final-mode merge of partial states (two-phase aggregation across
-devices) is ported in slice 7, user-defined aggregates in slice 5.
+Final mode merges partial states (``merge_states``): the merge of the
+morsels of a host-resident table (``physical/morsel.py``) and of the tiles
+of the cross-join aggregate.  A user-defined aggregate (a monoid, see
+``functions/udf.py``) is a segmented scan of its ``step`` in the
+reference's order, then its ``finalize``.
 
 Aggregate state layout (partial columns per logical aggregate):
   count       -> [count:i64]                 final: sum
@@ -114,7 +117,14 @@ class HashAggregateExec(ExecutionPlan):
     single : raw rows in, final values out
     partial: raw rows in, state columns out (for shuffle)
     final  : state columns in (schema = group keys + state), final values out
-    """
+
+    DISTINCT aggregates have no scalar partial state (a per-partition
+    distinct count over-counts values seen in several partitions).  The
+    partial phase groups by (keys + distinct values) instead, emitting the
+    deduplicated pairs as rows, and the final phase (``distinct_values``
+    > 0) deduplicates the values again per group before aggregating them,
+    while the other aggregates merge their states.  Final input layout
+    with distinct_values=k: [group keys..., dv_0..dv_{k-1}, states...]."""
 
     def __init__(
         self,
@@ -122,14 +132,20 @@ class HashAggregateExec(ExecutionPlan):
         group_expr: list[tuple[PhysicalExpr, str]],
         aggr_expr: list[PhysAggExpr],
         input: ExecutionPlan,
+        distinct_values: int = 0,
     ):
         super().__init__()
         if mode not in ("single", "partial", "final"):
             raise InternalError(f"bad aggregate mode {mode}")
+        if distinct_values and mode != "final":
+            raise InternalError("distinct_values only applies to final mode")
         self.mode = mode
         self.group_expr = group_expr
         self.aggr_expr = aggr_expr
         self.input = input
+        self.distinct_values = distinct_values
+        # final mode: the output capacity per input signature (K.fit_learned)
+        self._learned_caps: dict = {}
 
     def schema(self) -> Schema:
         fields = [Field(name, e.dtype, True) for e, name in self.group_expr]
@@ -147,16 +163,19 @@ class HashAggregateExec(ExecutionPlan):
 
     def with_new_children(self, c):
         return HashAggregateExec(
-            self.mode, self.group_expr, self.aggr_expr, c[0]
+            self.mode, self.group_expr, self.aggr_expr, c[0], self.distinct_values
         )
 
     def _execute(self) -> Table:
         t = self.input.execute()
+        alive = torch.arange(t.capacity, device=t.device) < t.nrows_dev
         if self.mode == "final":
-            raise NotImplementedError(
-                "final-mode aggregation (merging partial states) is ported in slice 7"
-            )
-        out = self.aggregate(t, torch.arange(t.capacity, device=t.device) < t.nrows_dev)
+            # the output capacity is learned per input signature: a warm run
+            # inside a speculation window reads no group count
+            sig = (t.capacity, tuple(str(c.dtype) for c in t.columns),
+                   tuple(id(c.dictionary) for c in t.columns))
+            return K.fit_learned(merge_states(self, t, alive), self._learned_caps, sig)
+        out = self.aggregate(t, alive)
         tgt = round_capacity(out.nrows)
         if tgt != out.capacity:
             out = out.with_capacity(tgt)
@@ -238,9 +257,6 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, seg: K.Segments, cap, alive,
     if a.expr is None:  # COUNT(*): the live rows are exactly the groups' rows
         cnt = torch.where(gvalid, seg.last - seg.first + 1, 0)
         return [Column(INT64, cnt, gvalid)]
-    if a.udf is not None:
-        raise NotImplementedError("user-defined aggregates are ported in slice 5")
-
     v = a.expr.evaluate(t)
     if perm is None:
         data, valid = v.data, v.valid & alive
@@ -253,6 +269,16 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, seg: K.Segments, cap, alive,
 
     def count():
         return K.segment_sum(valid.to(torch.int64), seg, cap)
+
+    if a.udf is not None:
+        # the user's monoid: a segmented scan of its step, read at each
+        # group's last row (udaf.rs; state = accumulator + count)
+        rt = a.return_type()
+        acc = udaf_scan(a, data, valid, seg)
+        cnt = count()
+        if emit_state:
+            return [Column(rt, acc, gvalid), Column(INT64, cnt, gvalid)]
+        return [Column(rt, udaf_finalize(a, acc, cnt), gvalid & (cnt > 0))]
 
     if f == "count":
         return [Column(INT64, count(), gvalid)]
@@ -307,13 +333,18 @@ def _eval_aggregate(a: PhysAggExpr, t: Table, perm, seg: K.Segments, cap, alive,
 
 def merge_states(op: "HashAggregateExec", t: Table, alive) -> Table:
     """Final values of ``op``'s aggregates from rows of its partial states
-    (``t``: group keys, then each aggregate's ``state_fields``), grouped by
-    the keys, over the rows where ``alive`` holds: the reference's
-    ``_execute_final`` and ``_merge_aggregate``.  DISTINCT aggregates have
-    no mergeable state and are refused."""
+    (``t``: group keys, then ``op.distinct_values`` distinct value columns,
+    then each non-distinct aggregate's ``state_fields``), grouped by the
+    keys, over the rows where ``alive`` holds: the reference's
+    ``_execute_final``, ``_merge_aggregate`` and
+    ``_final_distinct_over_values``.  The group sort is stable, so states
+    merge in the order of their rows, as the reference's do."""
+    from ..exprs.physical import PhysCol
+
     cap = t.capacity
     dev = t.device
     nk = len(op.group_expr)
+    ndv = op.distinct_values
     key_cols = t.columns[:nk]
     if key_cols:
         perm, ngroups, seg, kvalids, n = _group_rows(key_cols, alive)
@@ -334,14 +365,24 @@ def merge_states(op: "HashAggregateExec", t: Table, alive) -> Table:
     def state(c):
         return K.gather(c.data, perm), c.valid[perm] & alive_s
 
-    idx = nk
+    idx = nk + ndv
+    dvi = 0
     for a in op.aggr_expr:
-        if a.distinct:
-            raise PlanError(f"no mergeable partial state for DISTINCT {a.fun}")
-        st = t.columns[idx: idx + len(a.state_fields())]
-        idx += len(st)
         f = a.fun
         names.append(a.name)
+        if a.distinct:
+            if dvi >= ndv:
+                raise PlanError(f"no mergeable partial state for DISTINCT {a.fun}")
+            # the partial phase shipped deduplicated values: deduplicate
+            # them again per group and aggregate the survivors
+            dv = t.columns[nk + dvi]
+            dvi += 1
+            shim = PhysAggExpr(f, PhysCol("__dv", 0, dv.dtype), a.name, distinct=True)
+            view = Table(["__dv"], [dv], 0, device=dev)
+            cols.append(_eval_aggregate(shim, view, perm, seg, cap, alive_s, ngroups, False)[0])
+            continue
+        st = t.columns[idx: idx + len(a.state_fields())]
+        idx += len(st)
         if a.expr is None or f == "count":
             d, va = state(st[0])
             cols.append(Column(INT64, K.segment_sum(torch.where(va, d, 0), seg, cap), gvalid))
@@ -358,7 +399,10 @@ def merge_states(op: "HashAggregateExec", t: Table, alive) -> Table:
         d, _ = state(st[0])
         c, cv = state(st[1])
         cnt = K.segment_sum(torch.where(cv, c, 0), seg, cap)
-        if f == "sum":
+        if a.udf is not None:
+            acc = udaf_scan(a, d, cv & (c > 0), seg)
+            cols.append(Column(a.return_type(), udaf_finalize(a, acc, cnt), gvalid & (cnt > 0)))
+        elif f == "sum":
             rt = a.return_type()
             acc = K.signed_view(d)
             s_ = K.segment_sum(torch.where(cv, acc, torch.zeros((), dtype=acc.dtype, device=dev)), seg, cap)
@@ -380,6 +424,27 @@ def merge_states(op: "HashAggregateExec", t: Table, alive) -> Table:
         else:
             raise PlanError(f"merge for aggregate '{f}' not implemented")
     return Table(names, cols, ngroups, device=dev)
+
+
+def udaf_scan(a: PhysAggExpr, data, valid, seg: K.Segments) -> torch.Tensor:
+    """A user-defined aggregate's accumulator per group (in segment order,
+    [cap]): its ``step`` folded over the valid values of each group, the
+    invalid ones replaced by its ``zero``, as the reference's segmented
+    scan folds them."""
+    x = _udaf_inputs(a, data, valid)
+    return K._segment_scan(x, seg.gid, a.udf.step)[seg.last]
+
+
+def _udaf_inputs(a: PhysAggExpr, data, valid) -> torch.Tensor:
+    sdt = torch_dtype(a.return_type().storage_np_dtype())
+    zero = torch.full((), a.udf.zero, dtype=sdt, device=data.device)
+    return torch.where(valid, data.to(sdt), zero)
+
+
+def udaf_finalize(a: PhysAggExpr, acc, cnt) -> torch.Tensor:
+    """A user-defined aggregate's value from its accumulator and count."""
+    out = acc if a.udf.finalize is None else a.udf.finalize(acc, cnt)
+    return out.to(torch_dtype(a.return_type().storage_np_dtype()))
 
 
 def signed_zeros(x: torch.Tensor, valid: torch.Tensor, f: str) -> torch.Tensor:

@@ -223,7 +223,7 @@ def concat_tables(tables: list[Table], schema: Schema) -> Table:
         data = torch.cat([p.data for p in pieces])
         valid = torch.cat([p.valid for p in pieces])
         pad = out_cap - data.shape[0]
-        datas.append(torch.cat([data, data.new_zeros(pad)]))
+        datas.append(torch.cat([data, data.new_zeros((pad,) + data.shape[1:])]))
         valids.append(torch.cat([valid, valid.new_zeros(pad)]))
         dictionaries.append(merged)
     out_d, out_v, total = K.filter_compact(tuple(datas), tuple(valids), keep, out_cap)

@@ -19,8 +19,10 @@ or anti join over a small probe.  The reference's merge-rank probe, its
 direct-compare path for tiny builds, its fan-out-free phase B and its JIT
 caches are not carried over (checking each probe row's candidates in
 place, over the probe's capacity, took more kernel time on the card than
-expanding at the learned capacity: PERF.md); the build reuse of
-morsel-streamed joins comes with morsels (slice 6).
+expanding at the learned capacity: PERF.md).  A build table marked
+``reused_build`` (the device side of a morsel-streamed join,
+``physical/morsel.py``) keeps its hashed and sorted keys and its verify
+keys, so every probe morsel after the first reuses them.
 """
 
 from __future__ import annotations
@@ -145,7 +147,7 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
     lkeys, rkeys = _join_keys(lt, rt, on)
 
     # ---- phase A: hash, sort the build side, probe --------------------------
-    sorted_hash, build_order = K.join_build_sort(_key_hash(rkeys), nr)
+    sorted_hash, build_order, rord, rval = _build_side(lt, rt, on, rkeys)
     probe_ok = torch.arange(lcap, device=dev) < nl
     for c in lkeys:
         probe_ok = probe_ok & c.valid
@@ -165,8 +167,6 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
     # ---- phase B: expand, verify, materialize -------------------------------
     lord = tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in lkeys)
     lval = tuple(c.valid for c in lkeys)
-    rord = tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in rkeys)
-    rval = tuple(c.valid for c in rkeys)
     probe_idx, build_idx, pair_alive, _ = K.join_expand(lo, counts, build_order, expand_cap)
     ok = K.verify_equal(lord, lval, rord, rval, probe_idx, build_idx, pair_alive)
     if filter is not None:
@@ -233,6 +233,28 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
     # right-sized from a count or a learned capacity: a shrink learns nothing
     out._cap_learned = spec is None or final_cap is not None
     return out
+
+
+def _build_side(lt: Table, rt: Table, on, rkeys):
+    """(sorted hash, build order, verify keys, their valid masks) of the
+    build side.  A build table marked ``reused_build`` keeps them, keyed on
+    the join keys and the probe's dictionaries (string keys are remapped
+    onto a dictionary merged with the probe's)."""
+    reused = getattr(rt, "reused_build", False)
+    key = (repr(on), tuple(id(c.dictionary) for c in lt.columns))
+    memo = getattr(rt, "_join_prep", None) if reused else None
+    if memo is not None and memo[0] == key:
+        return memo[1]
+    sorted_hash, build_order = K.join_build_sort(_key_hash(rkeys), rt.nrows_dev)
+    prep = (
+        sorted_hash,
+        build_order,
+        tuple(K.orderable_key(c.data, c.dtype, c.vrange) for c in rkeys),
+        tuple(c.valid for c in rkeys),
+    )
+    if reused:
+        rt._join_prep = (key, prep)
+    return prep
 
 
 def _side_columns(t: Table, idx: torch.Tensor, live: torch.Tensor) -> list:

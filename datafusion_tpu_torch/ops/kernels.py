@@ -577,12 +577,14 @@ def spec_exact() -> _SpecExact:
     return _SpecExact()
 
 
-def fit_learned(t, learned: dict, key):
+def fit_learned(t, learned: dict, key, ratchet: bool = False):
     """``t`` right-sized without a host read once its capacity is learned.
     Outside a speculation window, or on the first run, one count sync
     sizes the buffers to ``round_capacity`` and teaches ``learned[key]``;
     inside one, later runs truncate to the learned capacity and record an
-    overflow flag (a count the host holds needs neither)."""
+    overflow flag (a count the host holds needs neither).  ``ratchet``: the
+    learned capacity only grows (the morsels of one scan share a key, and
+    the last, short one must not shrink it below the others)."""
     from ..columnar.table import Table, round_capacity
 
     n = t.nrows_dev
@@ -595,6 +597,8 @@ def fit_learned(t, learned: dict, key):
         t._cap_learned = True
         return t
     tgt = round_capacity(t.nrows)  # one count sync
+    if ratchet:
+        tgt = max(tgt, learned.get(key, 0))
     if len(learned) > 64:
         learned.clear()
     learned[key] = tgt

@@ -53,7 +53,7 @@ def _local_key(p: ExecutionPlan):
         return (
             "agg",
             p.mode,
-            getattr(p, "distinct_values", 0),
+            p.distinct_values,
             tuple((repr(e), n) for e, n in p.group_expr),
             tuple(repr(a) for a in p.aggr_expr),
         )

@@ -8,20 +8,24 @@ cached across queries by a structural signature (plan shape + source
 column dtypes, capacities and dictionaries).  A window (WindowAggExec)
 fuses where an aggregate would.  A subtree that ShareCommonSubtrees
 (physical/dedup.py) marked as shared is a stage boundary: both of its
-users see the same node, so its result memo is reused.  The reference's
-morsel stages over host tables come with the file-source slice.
+users see the same node, so its result memo is reused.  A chain over a
+host-resident table streams its morsels (``MorselStageExec``), and so
+does a join whose one side is a host table under filters and projections
+(``MorselJoinStageExec``, physical/morsel.py).
 """
 
 from __future__ import annotations
 
 from ..columnar.table import Table
+from ..datasource.host import HostMemoryExec
 from ..ops import kernels as K
 from ..ops.aggregate import HashAggregateExec
 from ..ops.base import ExecutionPlan
 from ..ops.basic import FilterExec, GlobalLimitExec, MemoryExec, ProjectionExec
-from ..ops.join import SHRINK_SYNC_MIN_CAP
+from ..ops.join import SHRINK_SYNC_MIN_CAP, HashJoinExec
 from ..ops.sort import SortExec
 from ..ops.window import WindowAggExec
+from .morsel import MorselJoinStageExec, MorselStageExec
 from .stage_compiler import CompiledStage, compilable, node_jit_safe
 
 _STAGE_CACHE: dict = {}
@@ -148,13 +152,61 @@ class FuseStages:
     def optimize(self, plan: ExecutionPlan) -> ExecutionPlan:
         return self._opt(plan, is_root=True)
 
+    def _try_morsel_join(self, plan: ExecutionPlan, is_root: bool):
+        """chain? -> HashJoin(host chain -> HostMemoryExec, other side):
+        stream the host table's morsels through the join against the other
+        side, which stays on the device (MorselJoinStageExec), for the join
+        types that are sound per morsel."""
+        chain, below = _fusable_chain(plan)
+        if chain is None:
+            chain, below = [], plan
+        if not isinstance(below, HashJoinExec):
+            return None
+        if any(isinstance(op, WindowAggExec) for op in chain):
+            return None  # per-morsel windows would split partitions
+        for host_on_left, child, other in (
+            (True, below.left, below.right),
+            (False, below.right, below.left),
+        ):
+            types = (
+                MorselJoinStageExec.HOST_LEFT_TYPES
+                if host_on_left
+                else MorselJoinStageExec.HOST_RIGHT_TYPES
+            )
+            if below.join_type not in types:
+                continue
+            hchain, hbelow = _fusable_chain(child)
+            if hchain is None:
+                hchain, hbelow = [], child
+            if not isinstance(hbelow, HostMemoryExec):
+                continue
+            if not all(isinstance(op, (FilterExec, ProjectionExec)) for op in hchain):
+                continue
+            return MorselJoinStageExec(
+                chain, below, hchain, hbelow, host_on_left,
+                self._opt(other, False), root=is_root,
+            )
+        return None
+
     def _opt(self, plan: ExecutionPlan, is_root: bool) -> ExecutionPlan:
+        # host-resident sources stream morsels through the fused stage;
+        # checked before StageExec, which would materialize the whole
+        # table (a HostMemoryExec is a MemoryExec)
+        chain, below = _fusable_chain(plan)
+        if (
+            chain is not None
+            and isinstance(below, HostMemoryExec)
+            and not any(isinstance(op, WindowAggExec) for op in chain)
+        ):
+            return MorselStageExec(chain, below, root=is_root)
+        mj = self._try_morsel_join(plan, is_root)
+        if mj is not None:
+            return mj
         if compilable(plan) and not isinstance(plan, MemoryExec):
             return StageExec(plan, root=is_root)
         # tail fusion: a fusable prefix above a non-fusable input (a join,
         # a union, an operator whose expressions read data on the host, a
         # stage the grammar ends below) still runs as one fused pass
-        chain, below = _fusable_chain(plan)
         if chain is not None:
             inner = self._opt(below, False)
             rebuilt = inner

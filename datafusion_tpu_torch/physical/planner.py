@@ -5,8 +5,7 @@ datafusion/src/physical_plan/planner.rs, create_initial_plan :341):
 recursively maps logical nodes to physical operators, and
 create_physical_expr binds expressions to input schemas by column index.
 Extension nodes go to the extension planners (ROLLING_WINDOW and
-CrossJoinAgg); user-defined functions raise PlanError naming the slice
-that ports them.
+CrossJoinAgg).
 
 Naming contract: a physical Table's column names are the *qualified* names
 of the producing logical node's DFSchema, so column lookup inside operators
@@ -58,10 +57,6 @@ from ..ops.basic import (
 from ..ops.sort import PhysSortExpr, SortExec
 from ..ops.window import PhysWindowExpr, WindowAggExec
 from ..types import Field, Schema
-
-
-def _not_ported(what: str, slice_no: int) -> PlanError:
-    return PlanError(f"{what} is ported in slice {slice_no}")
 
 
 class PhysicalPlanner:
@@ -268,8 +263,6 @@ class DefaultPhysicalPlanner(PhysicalPlanner):
                 create_physical_expr(e.args[0], in_schema) if e.args else None
             )
             udf = getattr(e, "udf", None)
-            if udf is not None:
-                raise _not_ported("user-defined aggregate", 5)
             aggs.append(PhysAggExpr(e.fun, arg, f.qualified_name, e.distinct, udf))
         return HashAggregateExec("single", group, aggs, input_exec)
 
@@ -376,7 +369,7 @@ def create_physical_expr(e: Expr, schema: DFSchema) -> P.PhysicalExpr:
     from ..logical.expr import ScalarUDFExpr
 
     if isinstance(e, ScalarUDFExpr):
-        raise _not_ported("user-defined scalar function", 5)
+        return P.PhysScalarUDF(e.udf, [create_physical_expr(a, schema) for a in e.args])
     if isinstance(e, ScalarFunction):
         args = [create_physical_expr(a, schema) for a in e.args]
         return P.PhysScalarFunction(e.name, args, e.get_type(schema))

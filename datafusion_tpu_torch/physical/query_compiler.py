@@ -137,19 +137,23 @@ def _discover_leaves(plan, out, seen):
 
 
 def _contains_untraceable(plan) -> bool:
-    """True when the tree holds a node whose execution is host-driven
-    (EXPLAIN's formatting; the morsel stages and host tables join this
-    list when they are ported), so that every build would fail."""
+    """True when the tree holds a node whose execution is host-driven (the
+    morsel loops over a host table, a host table's scan, EXPLAIN's
+    formatting), so that every build would fail: such a plan is never
+    checked nor captured, and runs node by node outside the graphs' pool."""
+    from ..datasource.host import HostMemoryExec
     from ..ops.basic import ExplainExec
     from .fuse import StageExec
+    from .morsel import MorselJoinStageExec, MorselStageExec
 
+    bad = (MorselStageExec, MorselJoinStageExec, HostMemoryExec, ExplainExec)
     seen: set = set()
 
     def walk(n) -> bool:
         if id(n) in seen:
             return False
         seen.add(id(n))
-        if isinstance(n, ExplainExec):
+        if isinstance(n, bad):
             return True
         kids = list(n.children())
         if isinstance(n, StageExec):
@@ -197,10 +201,14 @@ class WholeQuery:
         self._pins = None  # the device tables the graph reads, kept alive
         self._failures = 0
         leaves: list = []
-        _discover_leaves(phys, leaves, set())
+        # (a dead plan's leaves are not looked at: a host table's would
+        # materialize on the device)
+        dead = _contains_untraceable(phys)
+        if not dead:
+            _discover_leaves(phys, leaves, set())
         self.device = leaves[0].table.device if leaves else None
         # constant plans (no table) gain nothing
-        self._dead = not leaves or _contains_untraceable(phys)
+        self._dead = dead or not leaves
 
     @property
     def is_program(self) -> bool:

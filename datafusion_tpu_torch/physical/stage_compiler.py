@@ -44,7 +44,9 @@ from ..ops.aggregate import (
     _group_rows,
     _neutral,
     _to_float,
+    _udaf_inputs,
     signed_zeros,
+    udaf_finalize,
     zero_sign_fix,
 )
 from ..ops.base import ExecutionPlan
@@ -209,7 +211,7 @@ class CompiledStage:
         return ranges or None
 
     # ------------------------------------------------------------------
-    def execute(self, shrink: bool = True, src: Table | None = None) -> Table:
+    def execute(self, shrink: bool = True, src: Table | None = None, ratchet: bool = False) -> Table:
         if src is None:
             src = self.source.execute()
         datas = tuple(c.data for c in src.columns)
@@ -225,8 +227,9 @@ class CompiledStage:
             return t
         # downstream operators run over capacity: right-size the buffers
         # they will see, learning the capacity per input signature for a
-        # dynamic stage (``K.fit_learned``: growth flags and reruns exactly)
-        return K.fit_learned(t, self._learned_caps, self._cap_key(src))
+        # dynamic stage (``K.fit_learned``: growth flags and reruns exactly;
+        # ``ratchet`` for the morsels of one scan, which share a signature)
+        return K.fit_learned(t, self._learned_caps, self._cap_key(src), ratchet)
 
     def _cap_key(self, src: Table):
         """What a dynamic stage's learned output capacity depends on besides
@@ -304,9 +307,14 @@ class CompiledStage:
                 cols = list(key_cols)
                 if op.mode == "partial":
                     for a in op.aggr_expr:
-                        for sn, sd in a.state_fields():
+                        # a min/max state over strings keeps the argument's
+                        # dictionary, for the final merge
+                        dic = None
+                        if a.fun in ("min", "max") and a.expr is not None:
+                            dic = a.expr.evaluate(t).dictionary
+                        for j, (sn, sd) in enumerate(a.state_fields()):
                             names.append(sn)
-                            cols.append(meta_col(sd))
+                            cols.append(meta_col(sd, dic if j == 0 else None))
                 else:
                     for a in op.aggr_expr:
                         dic = None
@@ -727,7 +735,16 @@ def _eval_aggregate_nogroup(a: PhysAggExpr, t: Table, alive, out_cap, emit_state
     if a.distinct:
         return _eval_aggregate_nogroup_distinct(a, t, alive, out_cap, emit_state)
     if a.udf is not None:
-        raise NotImplementedError("user-defined aggregates are ported in slice 5")
+        # the user's monoid folded over every live valid value, in the
+        # order of the reference's associative scan
+        v = a.expr.evaluate(t)
+        m = alive & v.valid
+        x = _udaf_inputs(a, v.data, m)
+        acc = K.assoc_scan(lambda p, q: (a.udf.step(p[0], q[0]),), (x,))[0][-1]
+        cnt = m.sum()
+        if emit_state:
+            return [one(acc, True, x.dtype), one(cnt, True, torch.int64)]
+        return [one(udaf_finalize(a, acc, cnt), cnt > 0, x.dtype)]
 
     if a.expr is None:
         return [one(alive.sum(), True, torch.int64)]

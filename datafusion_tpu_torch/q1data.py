@@ -90,27 +90,48 @@ def generate_lineitem(sf: float = 1.0, seed: int = 7, device=None) -> Table:
     return _lineitem_table(lineitem_arrays(sf, seed), device)
 
 
+def _lineitem_columns(a: dict):
+    """(name, dtype, dictionary) of each column of ``a``, in table order."""
+    dec2 = decimal(15, 2)
+    rf_dict = StringDict(np.array(RETURNFLAGS, dtype=object))
+    ls_dict = StringDict(np.array(LINESTATUSES, dtype=object))
+    cols = [
+        ("l_quantity", dec2, None),
+        ("l_extendedprice", dec2, None),
+        ("l_discount", dec2, None),
+        ("l_tax", dec2, None),
+        ("l_returnflag", STRING, rf_dict),
+        ("l_linestatus", STRING, ls_dict),
+        ("l_shipdate", DATE32, None),
+        ("l_orderkey", INT64, None),
+        ("l_suppkey", INT64, None),
+        ("l_linenumber", INT32, None),
+    ]
+    return [c for c in cols if c[0] in a]
+
+
 def _lineitem_table(a: dict, device) -> Table:
     dev = resolve_device(device)
     n = len(a["l_quantity"])
-    dec2 = decimal(15, 2)
     cap = round_capacity(n)
-    rf_dict = StringDict(np.array(RETURNFLAGS, dtype=object))
-    ls_dict = StringDict(np.array(LINESTATUSES, dtype=object))
+    specs = _lineitem_columns(a)
+    cols = [
+        Column.from_numpy(dtype, a[name], dictionary=dic, capacity=cap, device=dev)
+        for name, dtype, dic in specs
+    ]
+    return Table([name for name, _, _ in specs], cols, n, device=dev)
 
-    def col(dtype, name, dictionary=None):
-        return Column.from_numpy(dtype, a[name], dictionary=dictionary, capacity=cap, device=dev)
 
-    cols = {
-        "l_quantity": col(dec2, "l_quantity"),
-        "l_extendedprice": col(dec2, "l_extendedprice"),
-        "l_discount": col(dec2, "l_discount"),
-        "l_tax": col(dec2, "l_tax"),
-        "l_returnflag": col(STRING, "l_returnflag", rf_dict),
-        "l_linestatus": col(STRING, "l_linestatus", ls_dict),
-        "l_shipdate": col(DATE32, "l_shipdate"),
-    }
-    for name, dtype in (("l_orderkey", INT64), ("l_suppkey", INT64), ("l_linenumber", INT32)):
-        if name in a:
-            cols[name] = col(dtype, name)
-    return Table(list(cols), list(cols.values()), n, device=dev)
+def lineitem_host_table(a: dict, morsel_rows: int, device=None):
+    """The columns of ``a`` (``lineitem_q1_arrays`` or ``lineitem_arrays``)
+    as a host-resident table streamed to ``device`` (None: the CUDA card)
+    in morsels of ``morsel_rows``; the arrays are used as they are (pinned
+    copies on the card), with the device tables' types and dictionaries."""
+    from .datasource.host import HostTable
+
+    specs = _lineitem_columns(a)
+    return HostTable(
+        [name for name, _, _ in specs], [dtype for _, dtype, _ in specs],
+        [a[name] for name, _, _ in specs], [None] * len(specs), [dic for _, _, dic in specs],
+        len(a["l_quantity"]), morsel_rows, device,
+    )

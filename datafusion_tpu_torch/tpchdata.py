@@ -305,19 +305,24 @@ DECIMAL_COLUMNS = {
 }
 
 
-def register_tpch(ctx, data: dict, device=None) -> None:
-    """Register every table of ``data`` (``generate_tpch``'s output) with an
-    ExecutionContext, on ``device`` (default: the context's device), dates
-    as date32 and money as decimal(15,2)."""
+def tpch_table(cols: dict, device=None):
+    """One table of ``generate_tpch``'s output as a Table on ``device``
+    (None: the CUDA card), dates as date32 and money as decimal(15,2)."""
     from .columnar.table import Table
     from .types.dtypes import DATE32, decimal
 
+    dtypes = {}
+    for n in cols:
+        if n in DATE_COLUMNS:
+            dtypes[n] = DATE32
+        elif n in DECIMAL_COLUMNS:
+            dtypes[n] = decimal(15, 2)
+    return Table.from_pydict(cols, dtypes=dtypes, device=device)
+
+
+def register_tpch(ctx, data: dict, device=None) -> None:
+    """Register every table of ``data`` (``generate_tpch``'s output) with an
+    ExecutionContext, on ``device`` (default: the context's device)."""
     dev = ctx.device if device is None else device
     for tname, cols in data.items():
-        dtypes = {}
-        for n in cols:
-            if n in DATE_COLUMNS:
-                dtypes[n] = DATE32
-            elif n in DECIMAL_COLUMNS:
-                dtypes[n] = decimal(15, 2)
-        ctx.register_table(tname, Table.from_pydict(cols, dtypes=dtypes, device=dev))
+        ctx.register_table(tname, tpch_table(cols, dev))

@@ -185,12 +185,46 @@ def test_random_and_now(contexts):
 
 
 def test_array_constructor_raises_naming_its_slice():
-    """Twin of test_functions.py::test_array_constructor_numeric_and_null:
-    fixed-size list columns are ported in slice 5."""
+    """Twin of test_functions.py::test_array_constructor_numeric_and_null.
+    Fixed-size list columns, once deferred to a later slice, now run: the
+    reference's rows, element nulls kept through a filter and a sort."""
     ctx = D.ExecutionContext(device="cpu")
-    ctx.register_table("t", D.Table.from_pydict({"a": [1, 2, 3], "b": [4.0, None, 6.0]}, device="cpu"))
-    with pytest.raises(NotImplementedError, match="slice 5"):
-        ctx.sql("SELECT array(a, b) AS ab FROM t").collect()
+    ctx.register_table("t", D.Table.from_pydict(
+        {"a": [1, 2, 3], "b": [4.0, None, 6.0], "s": ["x", "y", "z"], "s2": ["p", None, "x"]},
+        device="cpu"))
+    d = ctx.sql(
+        "SELECT array(a, b) AS ab, array(s, s2) AS ss, array(a, a, 7) AS aa FROM t WHERE a > 1"
+    ).collect().to_pydict()
+    assert d == {"ab": [[2.0, None], [3.0, 6.0]], "ss": [["y", None], ["z", "x"]],
+                 "aa": [[2, 2, 7], [3, 3, 7]]}
+    out = ctx.sql("SELECT array(a, b) AS ab FROM t ORDER BY a DESC").collect().to_pydict()
+    assert out["ab"] == [[3.0, 6.0], [2.0, None], [1.0, 4.0]]
+
+
+def test_array_matches_jax():
+    """array() of numbers, strings with NULLs and literals, through a
+    filter and a sort: the JAX package's rows, and the same storage, its
+    element nulls as in-band sentinels."""
+    rng = np.random.default_rng(11)
+    n = 300
+    data = {
+        "i": [None if z else int(v) for z, v in zip(rng.random(n) < 0.2, rng.integers(-9, 9, n))],
+        "f": [None if z else float(v) for z, v in zip(rng.random(n) < 0.2, rng.normal(size=n))],
+        "s": [None if z else str(v) for z, v in zip(rng.random(n) < 0.2, rng.choice(["p", "q", "r"], n))],
+        "t": [str(v) for v in rng.choice(["q", "zz"], n)],
+    }
+    jt = JTable.from_pydict(data)
+    jctx, pctx = J.ExecutionContext(), D.ExecutionContext(device="cpu")
+    jctx.register_table("t", jt)
+    pctx.register_table("t", port_table(jt))
+    sql = ("SELECT i, array(i, f) AS nf, array(s, t, 'lit') AS st, array(i, 3, i) AS ii FROM t "
+           "WHERE i IS NULL OR i > -5 ORDER BY i NULLS FIRST, f")
+    want = jctx.sql(sql).collect()
+    got = pctx.sql(sql).collect()
+    assert got.to_pydict() == want.to_pydict()
+    for name in ("nf", "ii"):
+        w, g = want.column(name), got.column(name)
+        assert np.array_equal(np.asarray(w.data[:want.nrows]), g.data[:got.nrows].numpy(), equal_nan=True)
 
 
 def test_convert_tz_literal_and_column_shift():
@@ -220,17 +254,26 @@ def test_convert_tz_literal_and_column_shift():
         ("CREATE EXTERNAL TABLE f (a BIGINT) STORED AS CSV LOCATION 'f.csv'", 6),
     ],
 )
-def test_deferred_work_names_its_slice(sql, slice_no):
-    """What is not ported yet names the slice that ports it (windows run:
-    test_torch_window.py)."""
+def test_deferred_work_names_its_slice(sql, slice_no, monkeypatch):
+    """Work once deferred to a later slice (``slice_no``) now runs: a
+    scalar UDF, a list column and CREATE EXTERNAL TABLE (windows run:
+    test_torch_window.py).  A fresh stage cache: the first two queries
+    differ only in a projected expression, which fault F8 (below) would
+    let the second one share the first one's stage."""
     from datafusion_tpu_torch.functions.udf import create_udf
+    from datafusion_tpu_torch.physical import fuse
     from datafusion_tpu_torch.types.dtypes import INT64
+
+    monkeypatch.setattr(fuse, "_STAGE_CACHE", {})
 
     ctx = D.ExecutionContext(device="cpu")
     ctx.register_table("t", D.Table.from_pydict({"a": [1, 2, 3]}, device="cpu"))
     ctx.register_udf(create_udf("twice", [INT64], INT64, lambda x: x * 2))
-    with pytest.raises(Exception, match=f"slice {slice_no}"):
-        ctx.sql(sql).collect()
+    got = ctx.sql(sql).collect().to_pydict()
+    if sql.startswith("CREATE"):
+        assert "f" in ctx.tables() and got == {}
+    else:
+        assert got["x"] == ([2, 4, 6] if "twice" in sql else [[1, 1], [2, 2], [3, 3]])
 
 
 def test_joins_and_cross_joins_run():

@@ -10,7 +10,10 @@ shapes and at edge cases (exact equality), among them every case of
 ``K1_CASES`` (``datafusion_tpu_torch/ops/smalldomain_cases.py``, which
 ``chip_smoke.py`` runs too); Q1 and the lineitem-only queries on the card
 against the same queries on the CPU; and that on the card Q1 and the
-small-domain GROUP BY launched K1, and the sort-path queries did not.
+small-domain GROUP BY launched K1, and the sort-path queries did not;
+that a host table's pinned, side-stream morsel copies equal synchronous
+uploads, that a warm morsel loop makes no host sync and launches K1 once
+per morsel, and that the native CSV/TBL loader is built and used.
 """
 
 import numpy as np
@@ -598,3 +601,108 @@ def test_window_functions_on_card_match_cpu(cuda):
                 for a, b in zip(got[col], want[col]):
                     assert a == b or (a != a and b != b) or (
                         isinstance(b, float) and abs(a - b) <= 1e-12 * max(abs(b), 1.0)), (w, col, a, b)
+
+
+# ---------------------------------------------------------------------------
+# host-resident tables, morsels and file sources (datasource/host.py,
+# physical/morsel.py, native_lib.py)
+# ---------------------------------------------------------------------------
+
+
+def _host_q1(rows: int, morsel_rows: int):
+    """Q1's lineitem of about ``rows`` rows on the CPU, and the same rows
+    as a host table for the card."""
+    from datafusion_tpu_torch.datasource.host import HostTable
+
+    t = generate_lineitem_q1(rows / 6_001_215, device="cpu")
+    return t, HostTable.from_table(t, morsel_rows, device="cuda")
+
+
+@pytest.mark.gpu
+def test_pinned_streamed_morsels_equal_synchronous_uploads(cuda):
+    """The morsels ``stream_morsels`` copies from pinned memory on its side
+    stream, one ahead, equal the synchronous upload of the same rows, the
+    last, partial morsel (its tail zeroed on the card) included."""
+    t, host = _host_q1(300_000, 1 << 16)
+    assert host.num_morsels == 5 and host.nrows % host.morsel_rows
+    assert all(torch.from_numpy(d).is_pinned() for d in host.datas + host.valids)
+    streamed = list(host.stream_morsels())
+    torch.cuda.synchronize()
+    for i, m in enumerate(streamed):
+        lo = i * host.morsel_rows
+        k = min(host.morsel_rows, host.nrows - lo)
+        assert m.capacity == host.morsel_rows and m.nrows == k
+        for c, src, want_v in zip(m.columns, host.datas, host.valids):
+            want = torch.zeros(m.capacity, dtype=c.data.dtype)
+            want[:k] = torch.from_numpy(src[lo:lo + k])
+            valid = torch.zeros(m.capacity, dtype=torch.bool)
+            valid[:k] = torch.from_numpy(want_v[lo:lo + k])
+            assert torch.equal(c.data.cpu(), want) and torch.equal(c.valid.cpu(), valid)
+
+
+@pytest.mark.gpu
+def test_no_host_sync_between_morsels_of_an_aggregate_stage(cuda):
+    """A warm collect of Q1 over a host table reads nothing on the host
+    while its morsels run: torch's sync check set to raise stays quiet
+    from the first morsel to the last, and K1 runs once per morsel."""
+    from datafusion_tpu_torch.columnar.table import HOST_SYNCS
+    from datafusion_tpu_torch.physical import morsel as M
+
+    t, host = _host_q1(400_000, 1 << 16)
+    ctx = ExecutionContext()
+    ctx.register_host_table("lineitem", host)
+    q1 = get_query_sql(1)
+    cpu = ExecutionContext(device="cpu")  # the same morsels, so the same float sums
+    cpu.register_host_table("lineitem", t, morsel_rows=host.morsel_rows)
+    want = cpu.sql(q1).collect().to_pydict()
+    for _ in range(2):  # cold (learns), then warm
+        assert ctx.sql(q1).collect().to_pydict() == want
+    seen = []
+    orig = M.MorselStageExec._execute
+
+    def guarded(self):
+        gen = self.host.stream_morsels
+        syncs0 = HOST_SYNCS[0]
+
+        def watched():
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                for m in gen():
+                    yield m
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            seen.append(HOST_SYNCS[0] - syncs0)
+
+        self.host.stream_morsels = watched
+        try:
+            return orig(self)
+        finally:
+            del self.host.stream_morsels
+
+    M.MorselStageExec._execute = guarded
+    try:
+        before = SD.smalldomain_sum_count.launches
+        got = ctx.sql(q1).collect().to_pydict()
+        launches = SD.smalldomain_sum_count.launches - before
+    finally:
+        M.MorselStageExec._execute = orig
+    assert got == want and seen == [0] and launches == host.num_morsels
+
+
+@pytest.mark.gpu
+def test_native_loader_is_built_and_used(cuda, tmp_path):
+    """A TBL file with a schema loads through the native C++ loader, built
+    at first use, onto the card."""
+    from datafusion_tpu_torch import native_lib
+    from datafusion_tpu_torch.types import Field, Schema
+    from datafusion_tpu_torch.types.dtypes import DATE32, INT64, STRING, decimal
+
+    p = tmp_path / "t.tbl"
+    p.write_text("1|A|1995-01-02|10.50|\n2|B|1996-03-04|0.25|\n3|A|1997-05-06|1.00|\n")
+    ctx = ExecutionContext()
+    sch = Schema([Field("k", INT64), Field("f", STRING), Field("d", DATE32), Field("m", decimal(15, 2))])
+    ctx.register_csv("t", str(p), sch, has_header=False, delimiter="|")
+    got = ctx.sql("SELECT f, count(*) c, sum(m) s FROM t GROUP BY f ORDER BY f").collect()
+    assert got.device.type == "cuda"
+    assert got.to_pydict() == {"f": ["A", "B"], "c": [2, 1], "s": [11.5, 0.25]}
+    assert ctx._resolve_table("t").loader == "native" and native_lib.get_lib() is not None

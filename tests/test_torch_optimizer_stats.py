@@ -1,7 +1,7 @@
 """Twins of tests/test_optimizer_stats.py on the torch port on the CPU:
 its three tests that read no Parquet, with the reference's own bodies
-(``torch_twins``); the Parquet statistics and pruning come with file
-sources."""
+(``torch_twins``); the five Parquet tests are twinned in
+test_torch_files.py."""
 
 from torch_twins import twin_tests
 

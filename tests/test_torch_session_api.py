@@ -1,6 +1,6 @@
 """Twins of tests/test_session_api.py on the torch port on the CPU: 9 of
 its 11 tests with the reference's own bodies (``torch_twins``); the CSV
-and Parquet writers come with file sources."""
+and Parquet writers are twinned in test_torch_files.py."""
 
 from torch_twins import twin_tests
 
