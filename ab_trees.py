@@ -1,7 +1,7 @@
 """Compare two trees of the torch port on one CUDA card, in one call.
 
     python3 ab_trees.py --trees DIR_A DIR_B [--queries 3,5,9] [--sf 1]
-                        [--blocks 1] [--runs 20] [--profiles 3]
+                        [--blocks 1] [--runs 20] [--profiles 3] [--mesh N]
 
 Each directory holds a checkout of this repo (``git archive`` of a commit,
 unpacked).  Each tree runs in a process of its own, in the order A B B A
@@ -12,8 +12,11 @@ per query: three collects (the cold run, the check, the capture of the
 CUDA graph and its replay), then ``--profiles`` replays under
 torch.profiler (kernel time: the device time of every kernel), then the
 median of ``--runs`` warm collects decoded to rows, each ending in a
-synchronize.  It prints one JSON line: per query the rows' digest, whether
-a graph was captured, the kernel times, the warm median and the cold
+synchronize.  With ``--mesh N`` every collect runs over ``make_mesh(N)``
+(N logical shards on the card; no graph) and the profiles also read the
+device time of the exchanges' kernels (the ``spmd.exchange`` ranges).  It
+prints one JSON line: per query the rows' digest, whether a graph was
+captured, the kernel and exchange times, the warm median and the cold
 run's peak device memory above what was allocated before it.
 
 The last lines: the card's name and power limit, then per query and tree
@@ -36,7 +39,7 @@ from pathlib import Path
 SEED = 7
 
 
-def worker(tree: str, queries: list, sf: float, runs: int, profiles: int) -> dict:
+def worker(tree: str, queries: list, sf: float, runs: int, profiles: int, mesh_shards: int) -> dict:
     sys.path.insert(0, str(Path(tree).resolve()))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -44,11 +47,22 @@ def worker(tree: str, queries: list, sf: float, runs: int, profiles: int) -> dic
     import datafusion_tpu_torch as D
     from datafusion_tpu_torch import ExecutionContext, tpchdata
     from datafusion_tpu_torch.build import build_all
-    from datafusion_tpu_torch.queries import run_tpch
+    from datafusion_tpu_torch.queries import run_tpch as run_single
 
     if not Path(D.__file__).resolve().is_relative_to(Path(tree).resolve()):
         raise RuntimeError(f"imported {D.__file__}, not the tree {tree}")
     build_all()
+    mesh = None
+    if mesh_shards:
+        from datafusion_tpu_torch.parallel.mesh import make_mesh
+
+        mesh = make_mesh(mesh_shards)
+    # the exchanges' ranges are host-side annotations: read only with the CPU
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if mesh is not None else [])
+
+    def run_tpch(ctx, q):
+        return run_single(ctx, q, mesh=mesh) if mesh is not None else run_single(ctx, q)
+
     ctx = ExecutionContext()
     tpchdata.register_tpch(ctx, tpchdata.generate_tpch(sf, SEED))
     torch.cuda.synchronize()
@@ -64,16 +78,18 @@ def worker(tree: str, queries: list, sf: float, runs: int, profiles: int) -> dic
         if any(r != rows[0] for r in rows):
             raise AssertionError(f"Q{q}: the three collects differ")
         plans = ctx._plan_cache
-        wq = getattr(plans[list(plans)[-1]], "_whole_query", None)
-        kernel_ms = []
+        wq = getattr(plans[list(plans)[-1]], "_whole_query", None) if plans else None
+        kernel_ms, exchange_ms = [], []
         for _ in range(profiles):
-            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            with profile(activities=activities) as prof:
                 run_tpch(ctx, q).to_pydict()
                 torch.cuda.synchronize()
+            events = prof.key_averages()
             kernel_ms.append(sum(
-                e.self_device_time_total for e in prof.key_averages()
+                e.self_device_time_total for e in events
                 if e.device_type == torch.autograd.DeviceType.CUDA
             ) / 1e3)
+            exchange_ms.append(sum(e.device_time_total for e in events if e.key == "spmd.exchange") / 1e3)
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()
@@ -84,6 +100,7 @@ def worker(tree: str, queries: list, sf: float, runs: int, profiles: int) -> dic
             "digest": hashlib.sha256(repr(sorted(zip(*rows[0].values()), key=repr)).encode()).hexdigest(),
             "graph": wq is not None and wq.graph is not None,
             "kernel_ms": kernel_ms,
+            "exchange_ms": exchange_ms,
             "warm_ms": statistics.median(times),
             "cold_peak_mib": cold_peak,
         }
@@ -98,11 +115,12 @@ def main() -> int:
     ap.add_argument("--blocks", type=int, default=1)
     ap.add_argument("--runs", type=int, default=20)
     ap.add_argument("--profiles", type=int, default=3)
+    ap.add_argument("--mesh", type=int, default=0)
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
     queries = [int(q) for q in args.queries.split(",")]
     if args.worker:
-        print(json.dumps(worker(args.worker, queries, args.sf, args.runs, args.profiles)))
+        print(json.dumps(worker(args.worker, queries, args.sf, args.runs, args.profiles, args.mesh)))
         return 0
 
     import torch
@@ -117,7 +135,7 @@ def main() -> int:
         for which in ("A", "B", "B", "A"):
             cmd = [sys.executable, str(Path(__file__).resolve()), "--trees", *trees,
                    "--queries", args.queries, "--sf", str(args.sf), "--runs", str(args.runs),
-                   "--profiles", str(args.profiles), "--worker", names[which]]
+                   "--profiles", str(args.profiles), "--mesh", str(args.mesh), "--worker", names[which]]
             t0 = time.perf_counter()
             p = subprocess.run(cmd, capture_output=True, text=True, cwd=names[which],
                                env={**os.environ, "PYTHONPATH": str(Path(names[which]).resolve())})
@@ -139,8 +157,10 @@ def main() -> int:
             ks = [statistics.median(r[q]["kernel_ms"]) for r in results[w]]
             ws = [r[q]["warm_ms"] for r in results[w]]
             med[w] = (statistics.median(ks), statistics.median(ws))
+            xs = [statistics.median(r[q]["exchange_ms"]) for r in results[w]]
             line.append(f"{w}: graph {all(r[q]['graph'] for r in results[w])}, kernel ms per process "
                         f"{['%.3f' % k for k in ks]} (spread of each {[ '%.3f' % (max(r[q]['kernel_ms']) - min(r[q]['kernel_ms'])) for r in results[w]]}), "
+                        f"exchange ms {['%.3f' % x for x in xs]}, "
                         f"warm ms {['%.3f' % x for x in ws]}, cold run's peak MiB above the held "
                         f"{['%.1f' % r[q]['cold_peak_mib'] for r in results[w]]}")
         digests = {r[q]["digest"] for w in ("A", "B") for r in results[w]}

@@ -107,6 +107,21 @@ Phases (each raises, and the script exits non-zero, on failure):
                Parquet round trip (device-resident and with morsel_rows=,
                the row groups Q6's filter prunes) where pyarrow is
                installed, else a line saying it did not run
+ 13. mesh    - run after phase 9, on its SF1 tables: the 22 TPC-H queries
+               over make_mesh(8), eight logical shards on the card
+               (datafusion_tpu_torch/parallel, run_tpch(ctx, q, mesh=)):
+               each query cold and in three warm runs, strict (0
+               fallbacks), against phase 8's single-device eager rows (Q1
+               also against the numpy oracle), K1 launched 0 times; per
+               query its node modes (mesh, broadcast, gather), exchange
+               bytes, cold and warm times beside the single-device eager
+               median, peak memory and host syncs per run; the query with
+               the most mesh time profiled (kernel time, idle share, top
+               device ops, the exchanges' share of kernel time); Q1's and
+               Q3's collect_partitioned(mesh=) against their collect; Q1
+               over lineitem in host memory sharded by from_host (never
+               materialized whole).  One card: NVLink and several cards
+               are not exercised
 Each phase prints its seconds ([phase] lines).  The last two lines are the
 kernels JSON line and the ok JSON line.
 """
@@ -131,10 +146,14 @@ import torch
 from datafusion_tpu_torch import ExecutionContext, tpchdata
 from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
 from datafusion_tpu_torch.columnar.table import HOST_SYNCS
+from datafusion_tpu_torch.datasource.host import HostTable
 from datafusion_tpu_torch.ops import kernels as K
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.ops.join import HashJoinExec
 from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
+from datafusion_tpu_torch.parallel.collectives import EXCHANGE_RANGE
+from datafusion_tpu_torch.parallel.executor import SpmdExecutor
+from datafusion_tpu_torch.parallel.mesh import make_mesh
 from datafusion_tpu_torch.physical import query_compiler as QC
 from datafusion_tpu_torch.physical import stage_compiler
 from datafusion_tpu_torch.q1data import (
@@ -152,6 +171,7 @@ from datafusion_tpu_torch.queries import (
     get_named_query,
     get_query_sql,
     run_tpch,
+    run_tpch_spmd,
     window_sql,
 )
 
@@ -1137,13 +1157,16 @@ def phase_tpch(name_power: str):
     per warm run, the graph's pool, peak memory and each join's candidates;
     the top device ops of the eager run of the join query with the most
     kernel time.  Returns K1's launches per query at SF1 (cold run and
-    replay), its max abs error and the names of the inputs it was checked
-    at."""
+    replay), its max abs error, the names of the inputs it was checked at,
+    the SF1 context, per query the check's (single-device eager) rows and
+    the eager path's warm median in ms, and Q1's numpy oracle (for the mesh
+    phase)."""
     err, checked, twins, wtwins = tpch_check(name_power)
     t0 = time.perf_counter()
     data = tpchdata.generate_tpch(SF, SEED)
     oracles = tpch_oracles(data)
     woracles = window_oracles(data)
+    q1_want = tpch_q1_oracle(data["lineitem"])
     ctx = ExecutionContext()
     tpchdata.register_tpch(ctx, data)
     torch.cuda.synchronize()
@@ -1155,7 +1178,7 @@ def phase_tpch(name_power: str):
         del t
     log(f"[tpch] SF{SF}: eight tables, {tables_mb:.1f} MiB of column buffers on the card; "
         f"generated, oracles and registered in {time.perf_counter() - t0:.3f} s")
-    launches, tops = {}, {}
+    launches, tops, single = {}, {}, {}
     loop0 = time.perf_counter()
     for q in TPCH_QUERIES:
         label = f"Q{q} SF{SF}"
@@ -1175,6 +1198,7 @@ def phase_tpch(name_power: str):
             err = max(err, k1_check(checked[-1], *args))
         del rec
         eager_rows, _, _, check_secs = run_recorded(ctx, q)
+        single[q] = [tpch_rows(eager_rows), None]
         replay_rows, glaunches, grec, capture_secs = run_recorded(ctx, q)
         wq = whole_query(ctx)
         if twins[q]:
@@ -1197,6 +1221,7 @@ def phase_tpch(name_power: str):
         late = time.perf_counter() - loop0 > TPCH_BUDGET_S
         batches = TPCH_SHORT_BATCHES if late else TPCH_BATCHES
         runs = warm_paths(lambda: run_tpch(ctx, q).to_pydict(), batches)
+        single[q][1] = statistics.median(runs["eager"])
         syncs = warm_syncs(lambda: run_tpch(ctx, q), lambda t: t.to_pydict())
         dec = decode_ms(lambda: run_tpch(ctx, q))
         base_mb = torch.cuda.memory_allocated() / 2**20
@@ -1252,9 +1277,7 @@ def phase_tpch(name_power: str):
         log(f"[tpch]   {line}")
     phase_window(name_power, ctx, woracles, wtwins)
     log(f"[memory] {name_power}: after the window phase, {graphs_held(ctx)}")
-    del ctx
-    torch.cuda.empty_cache()
-    return launches, err, checked
+    return launches, err, checked, ctx, single, q1_want
 
 
 # ---------------------------------------------------------------------------
@@ -1511,6 +1534,159 @@ def phase_window(name_power: str, ctx, oracles: dict, twins: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the 22 TPC-H queries at SF1 over an 8-shard mesh
+# ---------------------------------------------------------------------------
+
+MESH_SHARDS = 8
+MESH_WARM = 3  # warm runs per query after the cold one
+
+
+def tpch_q1_oracle(li: dict) -> dict:
+    """``q1_oracle`` over the TPC-H generator's lineitem arrays."""
+    return q1_oracle({
+        "l_shipdate": li["l_shipdate"],
+        "l_returnflag": np.searchsorted(RETURNFLAGS, li["l_returnflag"].astype(str)),
+        "l_linestatus": np.searchsorted(LINESTATUSES, li["l_linestatus"].astype(str)),
+        **{k: _dec(li[k]) for k in ("l_quantity", "l_extendedprice", "l_discount", "l_tax")},
+    })
+
+
+def mesh_modes(ex) -> dict:
+    return dict(collections.Counter(m for _, m in ex.node_modes))
+
+
+def mesh_run(ctx, q: int, mesh):
+    """One strict run of TPC-H query q over ``mesh`` through run_tpch_spmd:
+    (rows, executor, seconds, host syncs)."""
+    ex = SpmdExecutor(mesh, strict=True)
+    s0 = HOST_SYNCS[0]
+    t0 = time.perf_counter()
+    got = run_tpch_spmd(ctx, q, ex).to_pydict()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    if ex.fallback_count:
+        raise AssertionError(f"Q{q} on the mesh: {ex.fallback_count} fallbacks: {ex.node_modes}")
+    return got, ex, secs, HOST_SYNCS[0] - s0
+
+
+def exchange_ms(prof) -> float:
+    """Device milliseconds of the kernels launched inside the exchanges'
+    profiler ranges (the collectives' copies and the shuffles' layout and
+    packing)."""
+    return sum(e.device_time_total for e in prof.key_averages() if e.key == EXCHANGE_RANGE) / 1e3
+
+
+def phase_mesh(name_power: str, ctx, single: dict, q1_want: dict) -> dict:
+    """The 22 TPC-H queries at SF1 over make_mesh(8), eight logical shards
+    on the one card (parallel/*): each query cold, then MESH_WARM warm
+    runs, all strict, each against the single-device eager rows of the
+    tpch phase (Q1 also against the numpy oracle), with 0 fallbacks and no
+    K1 launch; per query its node modes, exchange bytes, cold time, warm
+    median beside the single-device eager median, peak memory and host
+    syncs per run; the query with the most mesh time profiled (kernel
+    time, idle share, top device ops, the exchanges' share); Q1's and
+    Q3's collect_partitioned against their collect; Q1 over the lineitem
+    held in host memory and sharded by ShardedTable.from_host.  Returns
+    K1's launches per mesh path (all 0)."""
+    mesh = make_mesh(MESH_SHARDS)
+    place = collections.Counter(str(d) for d in mesh.devices)
+    if any(d.type != "cuda" for d in mesh.devices):
+        raise AssertionError(f"make_mesh placed a shard off the card: {place}")
+    log(f"[mesh] {name_power}: make_mesh({MESH_SHARDS}): {dict(place)} (NVLink and several cards "
+        f"are not exercised: every exchange is a copy on one card)")
+    launches, warm_ms = {}, {}
+    for q in TPCH_QUERIES:
+        want, single_ms = single[q]
+        label = f"Q{q} SF{SF:g} mesh"
+        SD.smalldomain_sum_count.launches = 0
+        base_mb = torch.cuda.memory_allocated() / 2**20
+        torch.cuda.reset_peak_memory_stats()
+        got, ex, cold, cold_syncs = mesh_run(ctx, q, mesh)
+        check_tpch(f"{label} cold vs single-device", got, want, q in FULLY_ORDERED)
+        if q == 1:
+            check_q1(got, q1_want)
+        runs, syncs = [], []
+        for i in range(MESH_WARM):
+            got, ex, secs, n = mesh_run(ctx, q, mesh)
+            check_tpch(f"{label} warm run {i + 1} vs single-device", got, want, q in FULLY_ORDERED)
+            runs.append(secs * 1e3)
+            syncs.append(n)
+        peak_mb = torch.cuda.max_memory_allocated() / 2**20
+        launches[f"mesh-tpch-q{q}"] = SD.smalldomain_sum_count.launches
+        if launches[f"mesh-tpch-q{q}"]:
+            raise AssertionError(f"{label}: K1 launched {launches[f'mesh-tpch-q{q}']} times")
+        warm_ms[q] = statistics.median(runs)
+        xbytes = sum(d.get("exchange_bytes", 0) for d in ex.node_details)
+        log(f"[mesh] {name_power}: {label} {len(want)} rows equal the single-device rows in the "
+            f"cold run and {MESH_WARM} warm runs (strict, 0 fallbacks, K1 launches 0); modes "
+            f"{mesh_modes(ex)}; exchange bytes {xbytes} (bound per shard, summed over nodes); cold "
+            f"{cold * 1e3:.3f} ms ({cold_syncs} host syncs); warm median {warm_ms[q]:.3f} ms (runs "
+            f"{['%.3f' % r for r in runs]}, host syncs {syncs}); single-device eager median "
+            f"{single_ms:.3f} ms; peak memory {peak_mb:.1f} MiB ({peak_mb - base_mb:.1f} MiB above "
+            f"the {base_mb:.1f} MiB allocated before)")
+    heavy = max(warm_ms, key=warm_ms.get)
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mesh_run(ctx, heavy, mesh)
+        wall = (time.perf_counter() - t0) * 1e3
+    events = list(prof.key_averages())
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in kernels) / 1e3
+    xms = exchange_ms(prof)
+    log(f"[mesh] {name_power}: Q{heavy} (the most mesh time) profiled: {wall:.3f} ms wall, kernel "
+        f"time {busy:.3f} ms in {sum(e.count for e in kernels)} launches, device idle share "
+        f"{1 - busy / wall:.1%}; the exchanges' kernels {xms:.3f} ms ({xms / max(busy, 1e-9):.1%} of kernel "
+        f"time)")
+    ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA
+                  and e.key != EXCHANGE_RANGE), key=lambda e: e.self_device_time_total, reverse=True)
+    for e in ops[:12]:
+        log(f"[mesh]   {e.self_device_time_total / 1e3:9.3f} ms device  {e.count:5d} calls  {e.key[:60]}")
+
+    # collect_partitioned builds its own executor: strict through the
+    # environment, so a failing distributed operator raises there
+    os.environ["DFTPU_SPMD_STRICT"] = "1"
+    SD.smalldomain_sum_count.launches = 0
+    for q in (1, 3):
+        parts = ctx.sql(get_query_sql(q)).collect_partitioned(mesh=mesh)
+        if len(parts) != MESH_SHARDS:
+            raise AssertionError(f"Q{q} collect_partitioned: {len(parts)} parts")
+        union = {i: list(c) for i, c in enumerate(zip(*(r for p in parts for r in tpch_rows(p.to_pydict()))))}
+        check_tpch(f"Q{q} collect_partitioned union vs collect", union, single[q][0], False)
+        log(f"[mesh] {name_power}: Q{q} SF{SF:g} collect_partitioned(mesh=): {MESH_SHARDS} parts of "
+            f"{[p.nrows for p in parts]} rows; their union equals the collect")
+    launches["mesh-collect-partitioned-q1-q3"] = SD.smalldomain_sum_count.launches
+
+    # Q1 over lineitem in host memory: each shard receives only its slice
+    hctx = ExecutionContext()
+    for name in ctx.tables():
+        t = ctx.table(name).collect()
+        hctx.register_table(name, HostTable.from_table(t) if name == "lineitem" else t)
+    materialized = []
+    orig = HostTable.materialize
+    HostTable.materialize = lambda self: materialized.append(self.nrows) or orig(self)
+    SD.smalldomain_sum_count.launches = 0
+    try:
+        got, ex, secs, n = mesh_run(hctx, 1, mesh)
+    finally:
+        HostTable.materialize = orig
+    launches["mesh-q1-host-resident"] = SD.smalldomain_sum_count.launches
+    if materialized or launches["mesh-q1-host-resident"]:
+        raise AssertionError(f"Q1 host-resident on the mesh: materialized {materialized}, K1 "
+                             f"{launches['mesh-q1-host-resident']}")
+    if ("HostMemoryExec", "mesh") not in ex.node_modes:
+        raise AssertionError(f"Q1 host-resident: no sharded host scan in {ex.node_modes}")
+    check_tpch("Q1 host-resident mesh vs device-resident", got, single[1][0], True)
+    check_q1(got, q1_want)
+    log(f"[mesh] {name_power}: Q1 SF{SF:g} over the host-resident lineitem sharded by from_host: "
+        f"equals the device-resident rows and the oracle; the table never materialized on the "
+        f"card as a whole; {secs * 1e3:.3f} ms, {n} host syncs")
+    del hctx
+    return launches
+
+
+# ---------------------------------------------------------------------------
 # phase 10: Q1 over a host-resident lineitem at SF10, streamed in morsels
 # ---------------------------------------------------------------------------
 
@@ -1737,7 +1913,6 @@ def phase_morsel(name_power: str) -> tuple:
 def host_lineitem_context(data: dict, morsel_rows: int, device=None):
     """The TPC-H tables of ``data`` on ``device``, lineitem host-resident in
     morsels of ``morsel_rows``."""
-    from datafusion_tpu_torch.datasource.host import HostTable
 
     ctx = ExecutionContext(device=device)
     tpchdata.register_tpch(ctx, {k: v for k, v in data.items() if k != "lineitem"})
@@ -2000,10 +2175,14 @@ def main() -> int:
     t_phase = phase_done("sql", t_phase)
     phase_f4(name_power)
     t_phase = phase_done("f4", t_phase)
-    tpch_launches, tpch_err, tpch_checked = phase_tpch(name_power)
+    tpch_launches, tpch_err, tpch_checked, ctx, single, q1_want = phase_tpch(name_power)
     err = max(err, tpch_err)
     sql_checked += tpch_checked
     t_phase = phase_done("tpch and window", t_phase)
+    mesh_launches = phase_mesh(name_power, ctx, single, q1_want)
+    del ctx, single
+    torch.cuda.empty_cache()
+    t_phase = phase_done("mesh", t_phase)
     morsel_launches, morsel_err, morsel_checked = phase_morsel(name_power)
     err = max(err, morsel_err)
     sql_checked += morsel_checked
@@ -2014,7 +2193,7 @@ def main() -> int:
     phase_done("files", t_phase)
     log(f"[phase] all phases: {time.perf_counter() - t_main:.3f} s")
     by_path = {"q1": launches, **sql_launches, **{k: n for k, n in tpch_launches.items() if n},
-               "q1-sf10-host-resident-collect": morsel_launches}
+               "q1-sf10-host-resident-collect": morsel_launches, **mesh_launches}
 
     kernels = [{
         "name": "smalldomain_sum_count",

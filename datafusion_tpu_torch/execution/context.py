@@ -402,8 +402,19 @@ class ExecutionContext:
             raise PlanError(f"unsupported file type {plan.file_type}")
 
     # ---- execution ------------------------------------------------------------
-    def collect(self, plan: LogicalPlan) -> Table:
+    def create_physical_plan_for_mesh(self, plan: LogicalPlan):
+        """The raw (unfused) physical plan the SPMD executor lowers onto a
+        mesh: the counterpart of Ballista distributing an arbitrary plan
+        (scheduler/src/planner.rs:40-171)."""
+        planner = self.config.query_planner or DefaultPhysicalPlanner(self.device)
+        return planner.create_physical_plan(self.optimize(plan))
+
+    def collect(self, plan: LogicalPlan, mesh=None) -> Table:
+        """Execute ``plan``.  With ``mesh`` (``parallel.mesh.make_mesh``),
+        the plan runs SPMD over the mesh (``parallel/executor.py``)."""
         display = [f.name for f in plan.schema().fields]  # pre-optimization names
+        if mesh is not None and not (isinstance(plan, Explain) and plan.verbose):
+            return self._collect_on_mesh(plan, mesh, display)
         key = (plan.display(), self._catalog_version)
         phys = self._plan_cache.get(key)
         if phys is None:
@@ -428,6 +439,40 @@ class ExecutionContext:
             out = Table(display, out.columns, out.nrows_dev, device=out.device)
         return out
 
+    def _collect_on_mesh(self, plan: LogicalPlan, mesh, display) -> Table:
+        """collect() over a mesh; mesh EXPLAIN [ANALYZE] shows the raw plan
+        and, for ANALYZE, runs it and reports each node's mode (mesh,
+        broadcast, gather, fallback) and exchange statistics (the
+        distributed-metrics analogue of repartition.rs:58-100)."""
+        import time as _time
+
+        from ..ops.basic import ExplainExec
+        from ..parallel.executor import SpmdExecutor
+
+        if isinstance(plan, Explain):
+            rows = [("logical_plan", plan.plan.display())]
+            phys_inner = self.create_physical_plan_for_mesh(plan.plan)
+            rows.append(("physical_plan", phys_inner.display()))
+            if plan.analyze:
+                ex = SpmdExecutor(mesh, analyze=True)
+                t0 = _time.perf_counter()
+                out = ex.execute_plan(phys_inner)
+                elapsed = _time.perf_counter() - t0
+                lines = [
+                    f"output_rows: {out.nrows}",
+                    f"elapsed_s: {elapsed:.6f}",
+                    f"devices: {mesh.devices.size}",
+                    f"error_fallbacks: {ex.fallback_count}",
+                    f"structural_gathers: {ex.gather_count}",
+                ]
+                rows.append(("mesh_metrics", "\n".join(lines)))
+                rows.append(("mesh_plan", ex.explain_rows()))
+            return ExplainExec(plan.schema().to_schema(), rows, self.device).execute()
+        phys = self.create_physical_plan_for_mesh(plan)
+        out = SpmdExecutor(mesh).execute_plan(phys)
+        if len(display) == len(out.names):
+            out = Table(display, out.columns, out.nrows_dev, device=out.device)
+        return out
 
     # ---- output (context.rs:492,530) ------------------------------------------
     def write_csv(self, df, path: str):

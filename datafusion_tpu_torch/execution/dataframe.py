@@ -114,15 +114,25 @@ class DataFrame:
         return self._ctx.optimize(self._plan)
 
     # ---- terminals -------------------------------------------------------------------
-    def collect(self) -> Table:
-        """Execute the plan on the context's device."""
-        return self._ctx.collect(self._plan)
+    def collect(self, mesh=None) -> Table:
+        """Execute the plan on the context's device, or with ``mesh``
+        (``parallel.mesh.make_mesh``) SPMD over the mesh."""
+        return self._ctx.collect(self._plan, mesh=mesh)
 
-    def collect_partitioned(self) -> list[Table]:
-        """Per-partition results (dataframe.rs collect_partitioned): one
-        device runs the plan as one partition.  The mesh form comes with
-        the multi-device slice."""
-        return [self.collect()]
+    def collect_partitioned(self, mesh=None) -> list[Table]:
+        """Per-partition results (dataframe.rs collect_partitioned): with a
+        mesh, one Table per shard; a single device returns one partition."""
+        if mesh is None:
+            return [self.collect()]
+        from ..parallel.executor import SpmdExecutor
+
+        phys = self._ctx.create_physical_plan_for_mesh(self._plan)
+        parts = SpmdExecutor(mesh).execute_sharded(phys).shard_tables()
+        display = [f.name for f in self._plan.schema().fields]
+        return [
+            Table(display, p.columns, p.nrows_dev, device=p.device) if len(display) == len(p.names) else p
+            for p in parts
+        ]
 
     def to_pandas(self):
         return self.collect().to_pandas()

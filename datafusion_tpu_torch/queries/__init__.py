@@ -7,7 +7,8 @@ folded to ``date '1998-09-02'``, Q13's derived table naming its columns
 (``c_orders (c_custkey, c_count)``), Q15 as ``create view revenue0``, the
 query and ``drop view revenue0``, and Q20's date bound written
 ``'date 1994-01-01' + interval '1' year`` (read as 1994-01-01 plus a
-year).  ``run_tpch`` runs one.
+year).  ``run_tpch`` runs one, ``run_tpch_spmd`` runs one through a
+given SPMD executor.
 
 The named queries (``<name>.sql``) are the lineitem-only work of the
 single-table slice, each shaped on a TPC-H query:
@@ -54,9 +55,9 @@ def get_query_sql(q: int) -> str:
     return (_DIR / f"q{q}.sql").read_text()
 
 
-def run_tpch(ctx, q: int):
-    """Run TPC-H query q's statements in order (Q15 creates and drops a
-    view) and return the result Table of its query."""
+def _run_statements(ctx, q: int, collect):
+    """TPC-H query q's statements in order (Q15 creates and drops a view);
+    ``collect(stmt)`` runs the query itself and its result is returned."""
     result = None
     for stmt in get_query_sql(q).split(";"):
         low = stmt.lower()
@@ -65,8 +66,29 @@ def run_tpch(ctx, q: int):
         if "create view" in low or "drop view" in low:
             ctx.sql(stmt)
         else:
-            result = ctx.sql(stmt).collect()
+            result = collect(stmt)
     return result
+
+
+def run_tpch(ctx, q: int, mesh=None):
+    """Run TPC-H query q and return the result Table of its query; with
+    ``mesh`` (``parallel.mesh.make_mesh``) the query runs SPMD over it."""
+    return _run_statements(ctx, q, lambda stmt: ctx.sql(stmt).collect(mesh=mesh))
+
+
+def run_tpch_spmd(ctx, q: int, executor):
+    """TPC-H query q through ``executor`` (a ``parallel.executor.
+    SpmdExecutor``) over the context's raw physical plan, as
+    ``run_tpch(ctx, q, mesh=)`` runs it, for a caller that reads the
+    executor's ``node_modes`` and ``node_details`` afterwards."""
+    from ..columnar.table import Table
+
+    def collect(stmt):
+        plan = ctx.create_logical_plan(stmt)
+        out = executor.execute_plan(ctx.create_physical_plan_for_mesh(plan))
+        return Table([f.name for f in plan.schema().fields], out.columns, out.nrows_dev, device=out.device)
+
+    return _run_statements(ctx, q, collect)
 
 
 def get_named_query(name: str) -> str:

@@ -1,8 +1,8 @@
-"""Twins of tests/test_dataframe.py on the torch port on the CPU: 7 of its
-8 tests with the reference's own bodies (``torch_twins``); the eighth
-collects on a mesh, which comes with the multi-device slice, so its
-single-device half is written here.  Also ``Table.from_pandas``, against
-the JAX package's."""
+"""Twins of tests/test_dataframe.py on the torch port on the CPU: all 8 of
+its tests with the reference's own bodies (``torch_twins``), among them
+``collect_partitioned(mesh=)`` over an 8-shard CPU mesh; the single-device
+half of that test is also written out here.  Also ``Table.from_pandas``,
+against the JAX package's."""
 
 import jax
 
@@ -19,6 +19,7 @@ from torch_twins import twin_tests
 twin_tests(globals(), "test_dataframe.py", [
     "test_select_filter_sort_limit", "test_aggregate", "test_join", "test_union_distinct_skip",
     "test_explain_and_schema", "test_select_columns", "test_bare_table_collect_keeps_all_columns",
+    "test_repartition_and_collect_partitioned",
 ])
 
 

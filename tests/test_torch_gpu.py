@@ -13,7 +13,9 @@ against the same queries on the CPU; and that on the card Q1 and the
 small-domain GROUP BY launched K1, and the sort-path queries did not;
 that a host table's pinned, side-stream morsel copies equal synchronous
 uploads, that a warm morsel loop makes no host sync and launches K1 once
-per morsel, and that the native CSV/TBL loader is built and used.
+per morsel, that the native CSV/TBL loader is built and used, and that
+the mesh places its shards on the cards and runs Q1 over 8 shards without
+K1.
 """
 
 import numpy as np
@@ -706,3 +708,42 @@ def test_native_loader_is_built_and_used(cuda, tmp_path):
     assert got.device.type == "cuda"
     assert got.to_pydict() == {"f": ["A", "B"], "c": [2, 1], "s": [11.5, 0.25]}
     assert ctx._resolve_table("t").loader == "native" and native_lib.get_lib() is not None
+
+
+@pytest.mark.gpu
+def test_make_mesh_places_every_shard_on_a_card(cuda):
+    from datafusion_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    assert make_mesh().devices.size == n
+    mesh = make_mesh(8)
+    assert mesh.devices.size == 8
+    assert all(d.type == "cuda" and d.index == i % n for i, d in enumerate(mesh.devices))
+
+
+@pytest.mark.gpu
+def test_tpch_q1_on_an_8_shard_mesh_equals_single_device_without_k1(cuda):
+    """TPC-H Q1 at SF 0.01 over 8 logical shards on the card: the single
+    device's rows, strict with 0 fallbacks; the single device launches K1,
+    the mesh (sort-path grouping) never does."""
+    from datafusion_tpu_torch import tpchdata
+    from datafusion_tpu_torch.parallel.executor import SpmdExecutor
+    from datafusion_tpu_torch.parallel.mesh import make_mesh
+    from datafusion_tpu_torch.queries import run_tpch, run_tpch_spmd
+
+    ctx = ExecutionContext()
+    tpchdata.register_tpch(ctx, tpchdata.generate_tpch(0.01, 7))
+    before = SD.smalldomain_sum_count.launches
+    want = run_tpch(ctx, 1).to_pydict()
+    assert SD.smalldomain_sum_count.launches > before
+    ex = SpmdExecutor(make_mesh(8), strict=True)
+    before = SD.smalldomain_sum_count.launches
+    got = run_tpch_spmd(ctx, 1, ex).to_pydict()
+    assert SD.smalldomain_sum_count.launches == before
+    assert ex.fallback_count == 0 and all(m == "mesh" for _, m in ex.node_modes)
+    assert list(got) == list(want)
+    for k in want:
+        if k.startswith("avg"):
+            assert np.allclose(got[k], want[k], rtol=1e-12, atol=0), k
+        else:
+            assert got[k] == want[k], k

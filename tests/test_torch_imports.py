@@ -29,6 +29,11 @@ def test_sources_are_found():
     assert any(p.name == "smalldomain.py" for p in SOURCES)
 
 
+def test_the_mesh_modules_are_checked():
+    mesh = {p.name for p in SOURCES if p.parent.name == "parallel"}
+    assert mesh >= {"collectives.py", "mesh.py", "shuffle.py", "ops.py", "executor.py", "multihost.py"}
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & FORBIDDEN
@@ -47,6 +52,28 @@ def test_package_runs_with_jax_blocked():
         "out = ctx.sql('SELECT g, sum(v) s FROM t GROUP BY g ORDER BY g').collect().to_pydict()\n"
         "assert out == {'g': ['a', 'b'], 's': [4, 2]}, out\n"
         "assert not any(m.startswith('jax') and sys.modules[m] is not None for m in sys.modules)\n"
+        "print('ok')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
+def test_mesh_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "for m in ('jax', 'jaxlib', 'datafusion_tpu', 'bench'):\n"
+        "    sys.modules[m] = None\n"
+        "import datafusion_tpu_torch as D\n"
+        "from datafusion_tpu_torch.parallel import multihost\n"
+        "from datafusion_tpu_torch.parallel.mesh import make_mesh\n"
+        "ctx = D.ExecutionContext(device='cpu')\n"
+        "ctx.register_table('t', D.Table.from_pydict({'g': ['a', 'b', 'a'], 'v': [1, 2, 3]}, device='cpu'))\n"
+        "df = ctx.sql('SELECT g, sum(v) s FROM t GROUP BY g ORDER BY g')\n"
+        "assert df.collect(mesh=make_mesh(3, device='cpu')).to_pydict() == {'g': ['a', 'b'], 's': [4, 2]}\n"
+        "assert not multihost.initialize()\n"
         "print('ok')\n"
     )
     proc = subprocess.run(
