@@ -122,6 +122,32 @@ Phases (each raises, and the script exits non-zero, on failure):
                over lineitem in host memory sharded by from_host (never
                materialized whole).  One card: NVLink and several cards
                are not exercised
+ 14. distributed - run after phase 13, on phase 8's SF1 tables and
+               single-device eager rows, alone (no other collect runs
+               beside the executor threads): the Ballista TPC-H set (Q1,
+               Q3, Q5, Q6, Q10, Q12; benchmarks/run.sh:22-26) through
+               DistributedContext(num_executors=2, target_partitions=4)
+               on the card (datafusion_tpu_torch/distributed), cold and
+               in three warm runs, each against the single-device rows
+               (Q1 also against the numpy oracle); K1 launched once per
+               scan task in every Q1 run and held against its plain
+               version at one task's inputs; per query the stages and
+               tasks, cold and warm ms beside the single-device eager
+               median, spill bytes written and read, the seconds of the
+               stage subtrees, of the device-to-host copies with the file
+               writes, of the file reads with the host-to-device copies,
+               of the final read, the executors' poll sleeps, and peak
+               memory; the query with the most time profiled (idle share,
+               top ops); Q1 and Q3 at target_partitions=16 (Ballista's
+               shuffle.partitions default); Q1 and Q3 through a scheduler
+               subprocess that sees no card and two executor subprocesses
+               on the card over rpc.py, the tables in a spill directory;
+               Q3 again through two executors with --mesh-devices 4
+ 15. cli     - run after phase 12, on its SF1 lineitem .tbl rewritten as a
+               CSV: `python -m datafusion_tpu_torch.cli --format json -f`
+               a script that registers it with CREATE EXTERNAL TABLE and
+               runs Q1 and Q6, as a subprocess on the card; its JSON lines
+               equal the same statements' output in this process
 Each phase prints its seconds ([phase] lines).  The last two lines are the
 kernels JSON line and the ok JSON line.
 """
@@ -131,12 +157,15 @@ from __future__ import annotations
 import collections
 import contextlib
 import datetime
+import io
 import json
 import os
 import re
+import socket
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -146,7 +175,11 @@ import torch
 from datafusion_tpu_torch import ExecutionContext, tpchdata
 from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
 from datafusion_tpu_torch.columnar.table import HOST_SYNCS
+from datafusion_tpu_torch.cli import print_result
 from datafusion_tpu_torch.datasource.host import HostTable
+from datafusion_tpu_torch.distributed import DistributedContext, TableStore, serde, shuffle_io
+from datafusion_tpu_torch.distributed import exchange as X
+from datafusion_tpu_torch.distributed.rpc import RpcSchedulerClient
 from datafusion_tpu_torch.ops import kernels as K
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.ops.join import HashJoinExec
@@ -609,8 +642,11 @@ def profile_run(run, top: int = 15) -> dict:
     lines = [f"{e.self_device_time_total / 1e3:9.3f} ms device  {e.count:5d} calls  {e.key[:60]}"
              for e in ops[:top] if e.self_device_time_total > 0]
     lines.append(f"{len(kernels)} distinct kernels, {sum(e.count for e in kernels)} launches")
+    kernels.sort(key=lambda e: e.self_device_time_total, reverse=True)
+    top_kernels = [f"{e.self_device_time_total / 1e3:9.3f} ms device  {e.count:5d} launches  {e.key[:70]}"
+                   for e in kernels[:top]]
     return {"profiled_wall_ms": wall, "kernel_ms": busy, "idle_share": 1 - busy / wall,
-            "launches": sum(e.count for e in kernels), "top": lines,
+            "launches": sum(e.count for e in kernels), "top": lines, "top_kernels": top_kernels,
             "kernel_counts": {e.key: e.count for e in kernels}}
 
 
@@ -2114,16 +2150,353 @@ def files_check(tmp: str, a: dict, device=None, morsel_rows: int = MORSEL_ROWS, 
     return lines
 
 
-def phase_files(name_power: str) -> None:
-    """SF1 lineitem written as a .tbl file and loaded with register_csv and
-    a schema through the native loader (asserted), Q1 and Q6 against the
-    device-resident rows; a Parquet round trip where pyarrow is installed."""
-    import tempfile
-
+def phase_files(name_power: str, tmp: str) -> None:
+    """SF1 lineitem written as a .tbl file in ``tmp`` and loaded with
+    register_csv and a schema through the native loader (asserted), Q1 and
+    Q6 against the device-resident rows; a Parquet round trip where pyarrow
+    is installed.  The .tbl stays for the cli phase."""
     a = lineitem_arrays(SF, SEED)
+    for line in files_check(tmp, a):
+        log(f"[files] {name_power}: {line}")
+
+
+# ---------------------------------------------------------------------------
+# phase 14: the distributed runtime
+# ---------------------------------------------------------------------------
+
+DIST_QUERIES = (1, 3, 5, 6, 10, 12)  # the Ballista TPC-H set, benchmarks/run.sh:22-26
+DIST_WARM = 3  # warm runs per query after the cold one
+DIST_PARTITIONS = 4
+DIST_SHUFFLE_PARTITIONS = 16  # Ballista's ballista.shuffle.partitions default
+DIST_MESH_DEVICES = 4
+DIST_SPILLED = ("lineitem", "orders", "customer")  # the tables Q1 and Q3 read
+DIST_TIMES = ("exec_s", "write_s", "read_s", "final_read_s", "poll_sleep_s", "await_sleep_s")
+RPC = "datafusion_tpu_torch.distributed.rpc"
+ROOT = Path(__file__).resolve().parent  # the subprocesses import the port from here
+
+
+def _sync(dev) -> None:
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def dist_job(state, before: set) -> dict:
+    """The stages, tasks and scan tasks of the one job not in ``before``."""
+    (key,) = set(state.kv.keys("jobs/")) - before
+    job = key.split("/", 1)[1]
+    stages = [state.stage(job, sid) for sid in state.job(job)["stage_ids"]]
+    return {"stages": len(stages), "tasks": sum(s["num_input_partitions"] for s in stages),
+            "scan_tasks": sum(s["num_input_partitions"] for s in stages
+                              if '"dist_scan"' in json.dumps(s["plan"]))}
+
+
+def dist_run(dctx, q: int) -> dict:
+    """One collect of TPC-H query q through the standalone cluster ``dctx``
+    (rows decoded): its rows, ms, the job's shape, K1's launches (the
+    count set to 0 just before) and the exchanges' seconds and bytes."""
+    state = dctx.scheduler.state
+    before = set(state.kv.keys("jobs/"))
+    X.reset_times()
+    SD.smalldomain_sum_count.launches = 0
+    t0 = time.perf_counter()
+    got = dctx.sql(get_query_sql(q)).collect().to_pydict()
+    _sync(dctx.device)
+    ms = (time.perf_counter() - t0) * 1e3
+    return {"rows": got, "ms": ms, "k1": SD.smalldomain_sum_count.launches, "times": dict(X.TIMES),
+            **dist_job(state, before)}
+
+
+def dist_check(label: str, run: dict, q: int, want: list, q1_want: dict) -> None:
+    check_tpch(label, run["rows"], want, q in FULLY_ORDERED)
+    if q == 1:
+        check_q1(run["rows"], q1_want)
+        if run["k1"] != run["scan_tasks"]:
+            raise AssertionError(f"{label}: K1 launched {run['k1']} times for {run['scan_tasks']} scan tasks")
+
+
+def dist_context(tables: dict, partitions: int, work_dir: str):
+    dctx = DistributedContext(num_executors=2, target_partitions=partitions, work_dir=work_dir)
+    for name, t in tables.items():
+        dctx.register_table(name, t)
+    return dctx
+
+
+def dist_times(runs: list) -> str:
+    med = {k: statistics.median(r["times"].get(k, 0.0) for r in runs) for k in DIST_TIMES}
+    return ", ".join(f"{k[:-2]} {v:.3f} s" for k, v in med.items())
+
+
+def dist_standalone(name_power: str, tables: dict, single: dict, q1_want: dict, tmp: str) -> tuple:
+    """The six queries through the standalone cluster, then Q1 and Q3 at
+    16 partitions.  Returns (K1 launches per path, K1's max abs error, the
+    names of the inputs it was checked at)."""
+    t0 = time.perf_counter()
+    dctx = dist_context(tables, DIST_PARTITIONS, os.path.join(tmp, "p4"))
+    dev = dctx.device
+    log(f"[distributed] SF{SF:g}: DistributedContext(num_executors=2, target_partitions="
+        f"{DIST_PARTITIONS}) on {dev}, phase 8's eight tables registered in {time.perf_counter() - t0:.3f} s")
+    launches, err, checked, warm_ms = {}, 0, [], {}
+    try:
+        for q in DIST_QUERIES:
+            want, single_ms = single[q]
+            label = f"Q{q} SF{SF:g} distributed"
+            base_mb = torch.cuda.memory_allocated() / 2**20
+            torch.cuda.reset_peak_memory_stats()
+            rec = Recorder(stage_compiler.smalldomain_sum_count)
+            stage_compiler.smalldomain_sum_count = rec
+            try:
+                cold = dist_run(dctx, q)
+            finally:
+                stage_compiler.smalldomain_sum_count = rec.fn
+            dist_check(f"{label} cold vs single-device", cold, q, want, q1_want)
+            launches[f"distributed-q{q}"] = cold["k1"]
+            if len(rec.calls) != cold["k1"]:
+                raise AssertionError(f"{label}: {len(rec.calls)} K1 calls, {cold['k1']} launches")
+            if q == 1:
+                checked.append("distributed-q1-task-inputs")
+                err = max(err, k1_check(checked[-1], *rec.args))
+            del rec
+            runs = []
+            for i in range(DIST_WARM):
+                runs.append(dist_run(dctx, q))
+                dist_check(f"{label} warm run {i + 1} vs single-device", runs[-1], q, want, q1_want)
+            peak_mb = torch.cuda.max_memory_allocated() / 2**20
+            warm_ms[q] = statistics.median(r["ms"] for r in runs)
+            w = runs[len(runs) // 2]
+            log(f"[distributed] {name_power}: {label} {len(want)} rows equal the single-device rows "
+                f"in the cold run and {DIST_WARM} warm runs{' and the numpy oracle' if q == 1 else ''}; "
+                f"{cold['stages']} stages, {cold['tasks']} tasks ({cold['scan_tasks']} scan); K1 launches "
+                f"{cold['k1']} per run; cold {cold['ms']:.3f} ms, warm median {warm_ms[q]:.3f} ms (runs "
+                f"{['%.3f' % r['ms'] for r in runs]}), single-device eager median {single_ms:.3f} ms "
+                f"(x{warm_ms[q] / single_ms:.1f}); spill written {w['times'].get('write_bytes', 0)} B, read "
+                f"{w['times'].get('read_bytes', 0)} B per run; warm medians: {dist_times(runs)} (stage, "
+                f"write, read summed over tasks; sleeps summed over threads); peak memory {peak_mb:.1f} MiB "
+                f"({peak_mb - base_mb:.1f} above the {base_mb:.1f} allocated before)")
+        heavy = max(warm_ms, key=warm_ms.get)
+        prof = profile_run(lambda: dist_run(dctx, heavy), top=12)
+        log(f"[distributed] {name_power}: Q{heavy} (the most distributed time) profiled: "
+            f"{prof['profiled_wall_ms']:.3f} ms wall, kernel time {prof['kernel_ms']:.3f} ms in "
+            f"{prof['launches']} launches, device idle share {prof['idle_share']:.1%}; top kernels "
+            f"(the executor threads' host operators are not in the trace):")
+        for line in prof["top_kernels"]:
+            log(f"[distributed]   {line}")
+    finally:
+        dctx.close()
+    del dctx
+    dctx = dist_context(tables, DIST_SHUFFLE_PARTITIONS, os.path.join(tmp, "p16"))
+    try:
+        for q in (1, 3):
+            label = f"Q{q} SF{SF:g} distributed x{DIST_SHUFFLE_PARTITIONS}"
+            runs = [dist_run(dctx, q) for _ in range(2)]
+            for r, how in zip(runs, ("cold", "warm")):
+                dist_check(f"{label} {how} vs single-device", r, q, single[q][0], q1_want)
+            launches[f"distributed-x{DIST_SHUFFLE_PARTITIONS}-q{q}"] = runs[0]["k1"]
+            log(f"[distributed] {name_power}: {label} equals the single-device rows cold and warm; "
+                f"{runs[0]['stages']} stages, {runs[0]['tasks']} tasks; K1 launches {runs[0]['k1']} per "
+                f"run; cold {runs[0]['ms']:.3f} ms, warm {runs[1]['ms']:.3f} ms; spill written "
+                f"{runs[1]['times'].get('write_bytes', 0)} B; {dist_times(runs[1:])}")
+    finally:
+        dctx.close()
+    del dctx
+    torch.cuda.empty_cache()
+    return {k: n for k, n in launches.items() if n or k == "distributed-q1"}, err, checked
+
+
+def _free_port() -> int:
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _rpc_proc(args: list, log_path: str, env: dict):
+    with open(log_path, "wb") as f:
+        return subprocess.Popen([sys.executable, "-m", RPC, *args], stdout=f, stderr=subprocess.STDOUT,
+                                env=env, cwd=ROOT)
+
+
+def _stop(procs: list) -> None:
+    for p in procs:
+        p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def _log_tails(tmp: str) -> str:
+    out = []
+    for fn in sorted(os.listdir(tmp)):
+        if fn.endswith(".log"):
+            with open(os.path.join(tmp, fn), "rb") as f:
+                out.append(f"--- {fn}:\n" + f.read()[-3000:].decode(errors="replace"))
+    return "\n".join(out)
+
+
+def rpc_query(client, ctx, q: int, dev, timeout_s: float = 300.0) -> tuple:
+    """TPC-H query q planned on ``ctx`` and run by the cluster behind
+    ``client``: (rows, ms)."""
+    t0 = time.perf_counter()
+    plan = ctx.optimize(ctx.create_logical_plan(get_query_sql(q)))
+    job = client.execute_query(serde.plan_to_dict(plan))
+    while True:
+        status = client.get_job_status(job)
+        if status["status"] == "COMPLETED":
+            break
+        if status["status"] == "FAILED":
+            raise AssertionError(f"Q{q} job {job} failed: {status['error']}")
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"Q{q} job {job} did not finish in {timeout_s} s")
+        time.sleep(0.005)
+    out = shuffle_io.concat_read(status["final_paths"], status["final_schema"], dev)
+    # unqualified display names, as DistributedContext returns them
+    got = dict(zip([f.name for f in plan.schema().fields], out.to_pydict().values()))
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def dist_processes(name_power: str, ctx, tables: dict, single: dict, q1_want: dict, tmp: str) -> None:
+    """Q1 and Q3 through a scheduler subprocess that sees no card and two
+    executor subprocesses on the card, the tables in a spill directory;
+    then Q3 through two executors over meshes of DIST_MESH_DEVICES
+    shards."""
+    dev = ctx.device
+    work = os.path.join(tmp, "cluster")
+    os.makedirs(work)
+    port = _free_port()
+    env = dict(os.environ, DFTPU_SPMD_STRICT="1")
+    procs = []
+    try:
+        t0 = time.perf_counter()
+        procs.append(_rpc_proc(["scheduler", "--port", str(port), "--work-dir", work, "--partitions",
+                                str(DIST_PARTITIONS)], os.path.join(tmp, "scheduler.log"),
+                               dict(env, CUDA_VISIBLE_DEVICES="")))
+        client = None
+        while client is None:
+            try:
+                client = RpcSchedulerClient(f"127.0.0.1:{port}")
+                client.call("ping")
+            except OSError:
+                client = None
+                if procs[0].poll() is not None or time.perf_counter() - t0 > 120:
+                    raise AssertionError(f"the scheduler did not come up\n{_log_tails(tmp)}")
+                time.sleep(0.1)
+        for i in range(2):
+            procs.append(_rpc_proc(["executor", "--scheduler", f"127.0.0.1:{port}", "--work-dir", work,
+                                    "--id", f"exec-{i}"], os.path.join(tmp, f"exec{i}.log"), env))
+        store = TableStore(spill_dir=os.path.join(work, "_tables"), device=dev)
+        s0 = time.perf_counter()
+        for name in DIST_SPILLED:
+            store.put(name, tables[name])
+        spill_s = time.perf_counter() - s0
+        spill_b = sum(os.path.getsize(os.path.join(work, "_tables", f"{n}.dfs")) for n in DIST_SPILLED)
+        for name, t in tables.items():
+            client.register_table_schema(name, t.schema())
+        log(f"[distributed] {name_power}: a scheduler subprocess (CUDA_VISIBLE_DEVICES empty) and 2 "
+            f"executor subprocesses on the card over rpc.py; {', '.join(DIST_SPILLED)} spilled "
+            f"({spill_b} B in {spill_s:.3f} s); up in {time.perf_counter() - t0:.3f} s")
+        try:
+            for q in (1, 3):
+                runs = [rpc_query(client, ctx, q, dev) for _ in range(2)]
+                for (got, _), how in zip(runs, ("cold", "warm")):
+                    check_tpch(f"Q{q} multi-process {how} vs single-device", got, single[q][0],
+                               q in FULLY_ORDERED)
+                    if q == 1:
+                        check_q1(got, q1_want)
+                log(f"[distributed] {name_power}: Q{q} SF{SF:g} multi-process equals the single-device "
+                    f"rows cold and warm; cold {runs[0][1]:.3f} ms (the executors load the spilled "
+                    f"tables), warm {runs[1][1]:.3f} ms; single-device eager {single[q][1]:.3f} ms")
+            _stop(procs[1:])
+            t0 = time.perf_counter()
+            for i in range(2):
+                procs.append(_rpc_proc(["executor", "--scheduler", f"127.0.0.1:{port}", "--work-dir",
+                                        work, "--id", f"mesh-{i}", "--mesh-devices",
+                                        str(DIST_MESH_DEVICES)], os.path.join(tmp, f"mesh{i}.log"), env))
+            got, ms = rpc_query(client, ctx, 3, dev)
+            check_tpch("Q3 multi-process mesh-slice vs single-device", got, single[3][0],
+                       3 in FULLY_ORDERED)
+            log(f"[distributed] {name_power}: Q3 SF{SF:g} through 2 executor subprocesses with "
+                f"--mesh-devices {DIST_MESH_DEVICES} (strict) equals the single-device rows; "
+                f"{ms:.3f} ms including their start and table loads "
+                f"({(time.perf_counter() - t0) * 1e3:.3f} ms since they were started)")
+        except Exception as e:
+            raise AssertionError(f"{e}\n{_log_tails(tmp)}") from e
+    finally:
+        _stop(procs)
+
+
+def phase_distributed(name_power: str, ctx, single: dict, q1_want: dict) -> tuple:
+    """Phase 14 (see the module docstring).  Nothing else runs beside the
+    executor threads (distributed/executor.py): the tables are collected
+    from ``ctx`` before the first executor starts, and ``ctx`` only plans
+    while they run.  Returns (K1 launches per path, max abs error, the
+    names of the inputs K1 was checked at)."""
+    with path("eager"):  # a scan, node by node: no check or capture
+        tables = {name: ctx.table(name).collect() for name in ctx.tables()}
     with tempfile.TemporaryDirectory() as tmp:
-        for line in files_check(tmp, a):
-            log(f"[files] {name_power}: {line}")
+        launches, err, checked = dist_standalone(name_power, tables, single, q1_want, tmp)
+        dist_processes(name_power, ctx, tables, single, q1_want, tmp)
+    return launches, err, checked
+
+
+# ---------------------------------------------------------------------------
+# phase 15: the CLI
+# ---------------------------------------------------------------------------
+
+SQL_TYPES = {"int64": "BIGINT", "int32": "INT", "string": "VARCHAR", "date32": "DATE"}
+
+
+def cli_script(csv: str) -> tuple:
+    """The DDL that registers the lineitem CSV, and the script: the DDL,
+    Q1 and Q6."""
+    cols = ", ".join(f"{f.name} {SQL_TYPES.get(f.dtype.kind) or 'DECIMAL(15,2)'}"
+                     for f in lineitem_tbl_schema().fields)
+    ddl = f"CREATE EXTERNAL TABLE lineitem ({cols}) STORED AS CSV LOCATION '{csv}'"
+    return ddl, ";\n".join([ddl, *FILE_QUERIES.values()]) + ";\n"
+
+
+def cli_check(tmp: str, tbl: str, device=None) -> list:
+    """The .tbl file rewritten as a CSV, the CLI run on a script over it as
+    a subprocess (on ``device``: None is the card, "cpu" adds --cpu), and
+    its JSON lines against the same statements' output here.  Returns
+    printable lines."""
+    csv = os.path.join(tmp, "lineitem.csv")
+    raw = np.fromfile(tbl, np.uint8)
+    raw[raw == ord("|")] = ord(",")
+    raw.tofile(csv)
+    ddl, script = cli_script(csv)
+    path = os.path.join(tmp, "q1_q6.sql")
+    with open(path, "w") as f:
+        f.write(script)
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "datafusion_tpu_torch.cli", "--format", "json", "-f", path,
+                           *(["--cpu"] if device == "cpu" else [])],
+                          capture_output=True, text=True, timeout=600, cwd=ROOT)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"the CLI exited {proc.returncode}: {proc.stderr[-3000:]}")
+    got = [line for line in proc.stdout.splitlines() if line.startswith("[")]
+    took = [line for line in proc.stdout.splitlines() if "rows in set" in line]
+    ctx = ExecutionContext(device=device)
+    ctx.sql(ddl)
+    want = []
+    for q in FILE_QUERIES.values():
+        buf = io.StringIO()
+        print_result(ctx.sql(q).collect(), "json", file=buf)
+        want.append(buf.getvalue().strip())
+    if got != want:
+        raise AssertionError(f"the CLI's JSON {got} != in-process {want}")
+    rows = [len(json.loads(g)) for g in got]
+    return [f"python -m datafusion_tpu_torch.cli --format json -f <CREATE EXTERNAL TABLE over the SF{SF:g} "
+            f"lineitem as CSV; {', '.join(FILE_QUERIES)}>: {secs:.3f} s as a subprocess; its JSON "
+            f"({rows} rows) equals the in-process output; the CLI printed {took}"]
+
+
+def phase_cli(name_power: str, tmp: str) -> None:
+    for line in cli_check(tmp, os.path.join(tmp, "lineitem.tbl")):
+        log(f"[cli] {name_power}: {line}")
 
 
 def main() -> int:
@@ -2180,20 +2553,27 @@ def main() -> int:
     sql_checked += tpch_checked
     t_phase = phase_done("tpch and window", t_phase)
     mesh_launches = phase_mesh(name_power, ctx, single, q1_want)
+    t_phase = phase_done("mesh", t_phase)
+    dist_launches, dist_err, dist_checked = phase_distributed(name_power, ctx, single, q1_want)
+    err = max(err, dist_err)
+    sql_checked += dist_checked
     del ctx, single
     torch.cuda.empty_cache()
-    t_phase = phase_done("mesh", t_phase)
+    t_phase = phase_done("distributed", t_phase)
     morsel_launches, morsel_err, morsel_checked = phase_morsel(name_power)
     err = max(err, morsel_err)
     sql_checked += morsel_checked
     t_phase = phase_done("morsel", t_phase)
     phase_morsel_tpch(name_power)
     t_phase = phase_done("morsel-tpch", t_phase)
-    phase_files(name_power)
-    phase_done("files", t_phase)
+    with tempfile.TemporaryDirectory() as tmp:
+        phase_files(name_power, tmp)
+        t_phase = phase_done("files", t_phase)
+        phase_cli(name_power, tmp)
+        phase_done("cli", t_phase)
     log(f"[phase] all phases: {time.perf_counter() - t_main:.3f} s")
     by_path = {"q1": launches, **sql_launches, **{k: n for k, n in tpch_launches.items() if n},
-               "q1-sf10-host-resident-collect": morsel_launches, **mesh_launches}
+               "q1-sf10-host-resident-collect": morsel_launches, **mesh_launches, **dist_launches}
 
     kernels = [{
         "name": "smalldomain_sum_count",

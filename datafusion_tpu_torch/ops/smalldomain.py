@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
+import threading
 from typing import NamedTuple
 
 import torch
@@ -123,12 +124,15 @@ def smalldomain_sum_count(gid: torch.Tensor, cols, masks, domain: int):
     if err != 0:
         raise RuntimeError(f"smalldomain_sum_count launch failed: CUDA error {err}")
     if not capturing():
-        # inside a CUDA graph capture the launch is recorded, not run
-        smalldomain_sum_count.launches += 1
+        # inside a CUDA graph capture the launch is recorded, not run; the
+        # executor threads of a distributed context launch concurrently
+        with _LAUNCHES_LOCK:
+            smalldomain_sum_count.launches += 1
     return sums, counts
 
 
 smalldomain_sum_count.launches = 0
+_LAUNCHES_LOCK = threading.Lock()
 
 
 @functools.cache

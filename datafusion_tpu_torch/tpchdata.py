@@ -322,7 +322,8 @@ def tpch_table(cols: dict, device=None):
 
 def register_tpch(ctx, data: dict, device=None) -> None:
     """Register every table of ``data`` (``generate_tpch``'s output) with an
-    ExecutionContext, on ``device`` (default: the context's device)."""
+    ExecutionContext or a DistributedContext (anything with a ``device``
+    and ``register_table``), on ``device`` (default: the context's)."""
     dev = ctx.device if device is None else device
     for tname, cols in data.items():
         ctx.register_table(tname, tpch_table(cols, dev))

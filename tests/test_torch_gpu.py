@@ -15,7 +15,9 @@ that a host table's pinned, side-stream morsel copies equal synchronous
 uploads, that a warm morsel loop makes no host sync and launches K1 once
 per morsel, that the native CSV/TBL loader is built and used, and that
 the mesh places its shards on the cards and runs Q1 over 8 shards without
-K1.
+K1; that a standalone distributed cluster on the card gives the single
+device's Q1 rows and launches K1 once per scan task, and that a spill
+file written from the card holds the CPU's bytes.
 """
 
 import numpy as np
@@ -747,3 +749,52 @@ def test_tpch_q1_on_an_8_shard_mesh_equals_single_device_without_k1(cuda):
             assert np.allclose(got[k], want[k], rtol=1e-12, atol=0), k
         else:
             assert got[k] == want[k], k
+
+
+@pytest.mark.gpu
+def test_distributed_q1_on_the_card_launches_k1_once_per_scan_task(cuda):
+    """TPC-H Q1 at SF 0.01 through DistributedContext (2 executor threads,
+    4 partitions) on the card: the single device's rows, and K1 launched
+    by each of the 4 scan tasks' partial aggregates, by nothing else."""
+    from datafusion_tpu_torch import tpchdata
+    from datafusion_tpu_torch.distributed import DistributedContext
+    from datafusion_tpu_torch.queries import run_tpch
+
+    data = tpchdata.generate_tpch(0.01, 7)
+    ctx = ExecutionContext()
+    tpchdata.register_tpch(ctx, data)
+    want = run_tpch(ctx, 1).to_pydict()
+    dctx = DistributedContext(num_executors=2, target_partitions=4)
+    try:
+        assert dctx.device.type == "cuda"
+        tpchdata.register_tpch(dctx, data)
+        before = SD.smalldomain_sum_count.launches
+        out = dctx.sql(get_query_sql(1)).collect()
+        assert SD.smalldomain_sum_count.launches == before + 4
+    finally:
+        dctx.close()
+    assert out.device.type == "cuda"
+    got = out.to_pydict()
+    assert list(got) == list(want)
+    for k in want:
+        if k.startswith("avg"):
+            assert np.allclose(got[k], want[k], rtol=1e-12, atol=0), k
+        else:
+            assert got[k] == want[k], k
+
+
+@pytest.mark.gpu
+def test_spill_file_from_the_card_equals_the_cpus(cuda, tmp_path):
+    from datafusion_tpu_torch import Table
+    from datafusion_tpu_torch.distributed import shuffle_io
+
+    rng = np.random.default_rng(3)
+    d = {"i": rng.integers(-9, 9, 5000), "f": rng.normal(size=5000),
+         "s": [f"w{x}" for x in rng.integers(0, 30, 5000)]}
+    paths = []
+    for dev in ("cpu", cuda):
+        paths.append(str(tmp_path / f"{torch.device(dev).type}.dfs"))
+        shuffle_io.write_table(paths[-1], Table.from_pydict(d, device=dev))
+    assert open(paths[0], "rb").read() == open(paths[1], "rb").read()
+    back = shuffle_io.read_table(paths[0], cuda)
+    assert back.device.type == "cuda" and back.to_pydict() == Table.from_pydict(d, device="cpu").to_pydict()

@@ -34,6 +34,13 @@ def test_the_mesh_modules_are_checked():
     assert mesh >= {"collectives.py", "mesh.py", "shuffle.py", "ops.py", "executor.py", "multihost.py"}
 
 
+def test_the_distributed_modules_and_the_cli_are_checked():
+    dist = {p.name for p in SOURCES if p.parent.name == "distributed"}
+    assert dist >= {"__init__.py", "state.py", "shuffle_io.py", "exchange.py", "serde.py",
+                    "planner.py", "scheduler.py", "executor.py", "context.py", "rpc.py"}
+    assert ROOT / "datafusion_tpu_torch" / "cli.py" in SOURCES
+
+
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & FORBIDDEN
@@ -81,3 +88,21 @@ def test_mesh_runs_with_jax_blocked():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip().endswith("ok")
+
+
+@pytest.mark.parametrize("module", ["datafusion_tpu_torch.distributed.rpc", "datafusion_tpu_torch.cli"])
+def test_entry_points_run_with_jax_blocked(module):
+    """``python -m`` of the RPC roles and of the CLI: both parse their
+    command line (``--help``) with jax unimportable."""
+    code = (
+        "import runpy, sys\n"
+        "for m in ('jax', 'jaxlib', 'datafusion_tpu', 'bench'):\n"
+        "    sys.modules[m] = None\n"
+        f"sys.argv = [{module!r}, '--help']\n"
+        f"runpy.run_module({module!r}, run_name='__main__')\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert "usage:" in proc.stdout
