@@ -157,11 +157,31 @@ Phases (each raises, and the script exits non-zero, on failure):
                a script that registers it with CREATE EXTERNAL TABLE and
                runs Q1 and Q6, as a subprocess on the card; its JSON lines
                equal the same statements' output in this process
-Each phase prints its seconds ([phase] lines).  The [expected] line, after
-the last phase, counts the results that matched the expected file, by path
-(each path must have compared every query it runs), and gives the file's
-sha256 and the checks' seconds.  The last two lines are the kernels JSON
-line and the ok JSON line.
+ 16. sf10    - run last: bench/sf_check.py's configuration, TPC-H Q1, Q3,
+               Q5, Q6, Q7, Q9, Q10, Q12 and Q18 at SF10 (seed 7) against
+               the JAX package's rows (tests/data/torch_tpch_sf10_seed7
+               .json.gz, written by tests/torch_expected_sf10.py): the
+               generated tables must have the file's digests; then with
+               lineitem and orders pinned in host memory and streamed in
+               morsels of 2^20 rows, each query cold and in 2 warm
+               collects, each against the file, its plan streaming and
+               materializing the host tables as the JAX package's plan
+               does, K1 once per morsel in Q1 and Q12 and held against its
+               plain version at the first and last morsel's inputs; per
+               query the scans, morsels, K1 launches, warm median, host
+               syncs and peak memory per collect; then, after that
+               context is released, all eight tables on the card: per
+               query the cold run, the check, the capture and first replay
+               and one eager and one exact collect against the file, K1 at
+               every call's inputs (captured ones included), graph or
+               guard, warm medians of the three paths, syncs, decode, pool
+               and peak memory; K1 timed at Q1's N = 2^26 inputs beside its
+               byte bound; the card's peak and the phase's seconds
+Each phase prints its seconds ([phase] lines).  The [expected] lines, after
+phase 15 and in phase 16, count the results that matched each expected
+file, by path (each path must have compared every query it runs), and give
+the file's sha256 and the checks' seconds.  The last two lines are the
+kernels JSON line and the ok JSON line.
 """
 
 from __future__ import annotations
@@ -1031,15 +1051,18 @@ def check_tpch(label: str, got: dict, want: list, ordered: bool, order_spec=None
 
 
 class ExpectedRows:
-    """The JAX package's rows of the 22 TPC-H queries at SF1 (EXPECTED_FILE,
+    """The JAX package's rows of TPC-H queries at one SF (``path``: the SF1
+    file of the 22 queries, or the SF10 file of sf_check's nine;
     datafusion_tpu_torch/queries/expected.py) and the comparisons made
     with them: per path, the queries compared and how many times, and the
     seconds the checks took."""
 
     def __init__(self, path: Path = EXPECTED_FILE):
         t0 = time.perf_counter()
+        self.path = path
         self.sha256 = hashlib.sha256(path.read_bytes()).hexdigest()
         self.doc = expected.load(path)
+        self.sf = self.doc["sf"]
         expected.check_texts(self.doc, get_query_sql)
         self.queries = collections.defaultdict(set)
         self.count = collections.Counter()
@@ -1057,7 +1080,7 @@ class ExpectedRows:
         """Query q's rows on path ``where`` (a to_pydict()) equal the file's,
         under its column names and kinds, or this raises."""
         t0 = time.perf_counter()
-        expected.compare(f"Q{q} SF{SF:g} {where} vs the JAX package's rows", got,
+        expected.compare(f"Q{q} SF{self.sf:g} {where} vs the JAX package's rows", got,
                          self.doc["queries"][str(q)])
         self.queries[where].add(q)
         self.count[where] += 1
@@ -1066,21 +1089,21 @@ class ExpectedRows:
     def require(self, paths: dict) -> None:
         """Every path of ``paths`` ({path: queries}) compared every query."""
         if not self.tables_checked:
-            raise AssertionError("the generated SF1 tables were never checked against the file")
+            raise AssertionError(f"the generated SF{self.sf:g} tables were never checked against the file")
         missing = {p: sorted(set(qs) - self.queries.get(p, set())) for p, qs in paths.items()}
         missing = {p: qs for p, qs in missing.items() if qs}
         if missing:
             raise AssertionError(f"queries never compared with the expected file, by path: {missing}")
 
     def line(self, name_power: str) -> str:
-        return (f"[expected] {name_power}: the SF{SF:g} tables generated on this machine have the "
+        return (f"[expected] {name_power}: the SF{self.sf:g} tables generated on this machine have the "
                 f"file's digests ({sum(len(c) for c in self.doc['tables'].values())} columns of "
                 f"{len(self.doc['tables'])} tables, numpy {np.__version__} here, "
                 f"{self.doc['versions']['numpy']} for the file); {sum(self.count.values())} results "
                 f"matched the file, {sum(len(qs) for qs in self.queries.values())} (path, query) pairs "
                 f"over {len(self.queries)} paths: "
                 f"{ {p: f'{len(self.queries[p])} queries, {self.count[p]} runs' for p in self.queries} }; "
-                f"file {EXPECTED_FILE.relative_to(ROOT)} sha256 {self.sha256}; the checks took "
+                f"file {self.path.relative_to(ROOT)} sha256 {self.sha256}; the checks took "
                 f"{self.seconds:.3f} s")
 
 
@@ -2596,6 +2619,261 @@ def phase_cli(name_power: str, tmp: str) -> None:
         log(f"[cli] {name_power}: {line}")
 
 
+# ---------------------------------------------------------------------------
+# phase 16: TPC-H at SF10, sf_check's nine queries, host- and device-resident
+# ---------------------------------------------------------------------------
+
+SF10 = 10.0
+SF10_QUERIES = (1, 3, 5, 6, 7, 9, 10, 12, 18)  # bench/sf_check.py's set
+SF10_HOST_TABLES = ("lineitem", "orders")  # sf_check's --host-tables
+SF10_WARM = 2  # warm host-resident collects per query after the cold one
+SF10_BATCHES = 1  # device-resident: rounds of 5 warm runs per path
+# K1 host-resident: once per morsel of the table Q1's stage and Q12's join
+# stage stream
+SF10_K1_HOST = {1: "lineitem", 12: "orders"}
+# the JAX package's rows of the nine queries at SF10, seed 7, lineitem and
+# orders host-resident (tests/torch_expected_sf10.py writes it)
+SF10_EXPECTED_FILE = ROOT / "tests" / "data" / "torch_tpch_sf10_seed7.json.gz"
+
+
+class Peak:
+    """The card's peak allocation over a phase, across the per-run peak
+    resets of its measurements."""
+
+    def __init__(self):
+        torch.cuda.reset_peak_memory_stats()
+        self.mb = 0.0
+
+    def reset(self) -> float:
+        """The peak since the last reset (MiB); starts a new window."""
+        mb = torch.cuda.max_memory_allocated() / 2**20
+        self.mb = max(self.mb, mb)
+        torch.cuda.reset_peak_memory_stats()
+        return mb
+
+
+def live_cuda(top: int = 5) -> str:
+    """What is still allocated on the card: MiB, and the largest storages
+    still referenced by a live tensor (shape and dtype of one tensor on
+    each)."""
+    import gc
+
+    storages = {}
+    for o in gc.get_objects():
+        if isinstance(o, torch.Tensor) and o.is_cuda:
+            st = o.untyped_storage()
+            storages.setdefault(st.data_ptr(), (st.nbytes(), tuple(o.shape), str(o.dtype)))
+    big = sorted(storages.values(), reverse=True)[:top]
+    return (f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated, "
+            f"{sum(b for b, _, _ in storages.values()) / 2**20:.1f} MiB in {len(storages)} storages "
+            f"that Python tensors reference; largest {[(f'{b / 2**20:.1f} MiB', sh, dt) for b, sh, dt in big]}")
+
+
+def k1_checked(rec_calls, tag: str, checked: list) -> int:
+    """K1 against its plain version at each recorded call's inputs."""
+    err = 0
+    for i, args in enumerate(rec_calls):
+        checked.append(f"{tag}-{i}")
+        err = max(err, k1_check(checked[-1], *args))
+    return err
+
+
+def sf10_host(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) -> tuple:
+    """sf_check's configuration: lineitem and orders pinned in host memory
+    and streamed in morsels of 2^20 rows, the other six tables on the card.
+    Each query cold and in SF10_WARM warm collects, every one against the
+    expected file, and each plan streams and materializes the host tables
+    as the JAX package's plan does (the file's ``host_scans``); K1 once per
+    lineitem morsel in Q1 and once per orders morsel in Q12, held against
+    its plain version at the first and the last (partial) morsel's
+    inputs.  Returns (K1 launches per query, max abs err, inputs checked)."""
+    t0 = time.perf_counter()
+    ctx = ExecutionContext()
+    for name, t in tables.items():
+        if name in SF10_HOST_TABLES:
+            ctx.register_host_table(name, HostTable.from_table(t, MORSEL_ROWS, ctx.device))
+        else:
+            ctx.register_table(name, t.to(ctx.device))
+    torch.cuda.synchronize()
+    hosts = {n: ctx._resolve_table(n).host for n in SF10_HOST_TABLES}
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    log(f"[sf10] host-resident: " + "; ".join(
+        f"{n} {h.nrows} rows, {h.num_morsels} morsels of {h.morsel_rows}, {h.nbytes / 2**30:.3f} GiB "
+        f"pinned in {h.pin_seconds:.3f} s" for n, h in hosts.items())
+        + f"; the other six tables {base_mb:.1f} MiB on the card; set up in {time.perf_counter() - t0:.3f} s")
+    err, checked, launches = 0, [], {}
+    for q in SF10_QUERIES:
+        label = f"Q{q} SF{SF10:g} host-resident"
+        rec = EndsRecorder(stage_compiler.smalldomain_sum_count)
+        stage_compiler.smalldomain_sum_count = rec
+        try:
+            SD.smalldomain_sum_count.launches = 0
+            t0 = time.perf_counter()
+            got = run_tpch(ctx, q).to_pydict()
+            cold = (time.perf_counter() - t0) * 1e3
+            k1 = SD.smalldomain_sum_count.launches
+        finally:
+            stage_compiler.smalldomain_sum_count = rec.fn
+        exp.check("host-resident cold", q, got)
+        plan = last_plan(ctx)
+        scans = expected.host_scans(plan)
+        if scans != exp.doc["host_scans"][str(q)]:
+            raise AssertionError(f"{label}: the plan reads its host tables as {scans}, the JAX "
+                                 f"package's as {exp.doc['host_scans'][str(q)]}")
+        if q in SF10_K1_HOST:
+            streamed = hosts[SF10_K1_HOST[q]]
+            if k1 != streamed.num_morsels:
+                raise AssertionError(f"{label}: K1 launched {k1} times, want once per "
+                                     f"{SF10_K1_HOST[q]} morsel ({streamed.num_morsels})")
+            err = max(err, k1_checked(rec.calls, f"sf10-q{q}-host-first-and-last-morsel-inputs", checked))
+        launches[f"sf10-q{q}-host-resident-cold"] = k1
+        del rec, got
+        times, morsels, syncs, peaks = [], [], [], []
+        for _ in range(SF10_WARM):
+            m0, s0 = morsels_run(plan), HOST_SYNCS[0]
+            peak.reset()
+            t0 = time.perf_counter()
+            res = run_tpch(ctx, q)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+            syncs.append(HOST_SYNCS[0] - s0)
+            peaks.append(peak.reset() - base_mb)
+            morsels.append(morsels_run(plan) - m0)
+            exp.check("host-resident warm", q, res.to_pydict())
+        del res
+        log(f"[sf10] {name_power}: {label}: the cold run and {SF10_WARM} warm collects give the expected "
+            f"file's rows; host scans as the JAX package's plan: {scans}; morsels per collect {morsels}; K1 launches {k1}; cold "
+            f"{cold:.3f} ms; warm median {statistics.median(times):.3f} ms (runs "
+            f"{['%.3f' % t for t in times]}); host syncs per collect {syncs}; peak device memory "
+            f"{max(peaks):.1f} MiB above the {base_mb:.1f} MiB of tables; "
+            f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated after the query")
+    for n, h in hosts.items():
+        if h._materialized is not None:
+            log(f"[sf10] {name_power}: {n} was materialized on the card once, "
+                f"{sum(c.data.nbytes + c.valid.nbytes for c in h._materialized.columns) / 2**20:.1f} MiB")
+    del ctx, hosts, plan
+    torch.cuda.empty_cache()
+    return launches, err, checked
+
+
+def sf10_device(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) -> tuple:
+    """All eight SF10 tables on the card.  Per query: the cold run (learning
+    capacities), the check (speculative, host reads refused), the capture
+    and first replay of its CUDA graph, one eager and one exact collect,
+    each against the expected file; K1 against its plain version at every
+    call's inputs, captured ones included; warm medians of the three paths
+    in turns, syncs, decode, the pool and the peak.  Returns (K1 launches
+    per query, max abs err, inputs checked, Q1's K1 inputs)."""
+    t0 = time.perf_counter()
+    ctx = ExecutionContext()
+    for name, t in tables.items():
+        ctx.register_table(name, t.to(ctx.device))
+    torch.cuda.synchronize()
+    base_mb = torch.cuda.memory_allocated() / 2**20
+    log(f"[sf10] device-resident: eight tables, {base_mb:.1f} MiB on the card; uploaded in "
+        f"{time.perf_counter() - t0:.3f} s")
+    err, checked, launches, q1_args = 0, [], {}, None
+    for q in SF10_QUERIES:
+        label = f"Q{q} SF{SF10:g} device-resident"
+        peak.reset()
+        got, k1, rec, cold = run_recorded(ctx, q)
+        cold_peak = peak.reset() - base_mb
+        exp.check("cold", q, got)
+        if (k1 > 0) != (q in TPCH_K1_QUERIES):
+            raise AssertionError(f"{label}: K1 launched {k1} times")
+        err = max(err, k1_checked(rec.calls, f"sf10-q{q}-device-inputs", checked))
+        if q == 1:
+            q1_args = rec.calls[0]
+        launches[f"sf10-q{q}-device-cold"] = k1
+        del rec, got
+        rows, _, _, check_s = run_recorded(ctx, q)
+        exp.check("check", q, rows)
+        rows, glaunches, grec, capture_s = run_recorded(ctx, q)
+        exp.check("replay", q, rows)
+        wq = whole_query(ctx)
+        if wq is not None and wq.failure is not None and wq.failure[0] != "guard":
+            raise AssertionError(f"{label}: the whole-query build failed outside the guard: {wq.failure}")
+        recorded = 0
+        if wq is not None and wq.graph is not None:
+            recorded = len(grec.calls) - glaunches
+            if glaunches or (recorded > 0) != (q in TPCH_K1_QUERIES):
+                raise AssertionError(f"{label}: the capture launched K1 {glaunches} times and "
+                                     f"recorded {recorded} calls")
+            err = max(err, k1_checked(grec.calls, f"sf10-q{q}-device-captured-inputs", checked))
+        del grec, rows
+        runs = warm_paths(lambda: run_tpch(ctx, q).to_pydict(), SF10_BATCHES)
+        for p in ("eager", "exact"):
+            with path(p):
+                exp.check(p, q, run_tpch(ctx, q).to_pydict())
+        syncs = warm_syncs(lambda: run_tpch(ctx, q), lambda t: t.to_pydict())
+        dec = decode_ms(lambda: run_tpch(ctx, q))
+        peak.reset()
+        run_tpch(ctx, q).to_pydict()
+        torch.cuda.synchronize()
+        warm_peak = peak.reset() - base_mb
+        log(f"[sf10] {name_power}: {label}: the cold run, the check, the replay and an eager and an "
+            f"exact collect give the expected file's rows; {graph_state(wq)}; K1 launches cold {k1}, "
+            f"recorded by the capture {recorded}; cold {cold * 1e3:.3f} ms, check {check_s * 1e3:.3f} ms, "
+            f"capture and replay {capture_s * 1e3:.3f} ms; {medians(runs)}; host syncs per warm run "
+            f"{syncs[0]} (+{syncs[1]} to decode); decode {dec:.3f} ms; peak device memory above the "
+            f"tables: cold run {cold_peak:.1f} MiB, warm run {warm_peak:.1f} MiB; "
+            f"{torch.cuda.memory_allocated() / 2**20:.1f} MiB allocated after the query")
+    log(f"[memory] {name_power}: sf10 device-resident, {graphs_held(ctx)}")
+    del ctx
+    torch.cuda.empty_cache()
+    return launches, err, checked, q1_args
+
+
+def phase_sf10(name_power: str) -> tuple:
+    """sf_check's nine TPC-H queries at SF10, seed 7, against the JAX
+    package's rows (SF10_EXPECTED_FILE): the generated tables must have
+    the file's digests; then host-resident (``sf10_host``) and
+    device-resident (``sf10_device``), each context released before the
+    next; K1 timed at device-resident Q1's inputs beside its byte bound.
+    Returns (K1 launches per path, max abs err, inputs checked, K1's SF10
+    timing)."""
+    t_phase = time.perf_counter()
+    log(f"[sf10] {name_power}: left on the card by the earlier phases: {live_cuda()}")
+    peak = Peak()
+    exp = ExpectedRows(SF10_EXPECTED_FILE)
+    t0 = time.perf_counter()
+    data = tpchdata.generate_tpch(SF10, SEED)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    exp.check_tables(data)
+    digest_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tables = {name: tpchdata.tpch_table(cols, "cpu") for name, cols in data.items()}
+    nrows = {name: t.nrows for name, t in tables.items()}
+    del data
+    log(f"[sf10] SF{SF10:g} seed {SEED}: generated in {gen_s:.3f} s; the tables have the expected file's "
+        f"digests (checked in {digest_s:.3f} s); encoded on the host in {time.perf_counter() - t0:.3f} s; "
+        f"rows {nrows}")
+    host_launches, err, checked = sf10_host(name_power, tables, exp, peak)
+    log(f"[sf10] {name_power}: the host-resident context released: {live_cuda()}")
+    dev_launches, dev_err, dev_checked, args = sf10_device(name_power, tables, exp, peak)
+    del tables
+    err = max(err, dev_err)
+    checked += dev_checked
+    kname = "smalldomain_sum_count_kernel"
+    ms, kept = kernel_only_ms(lambda: SD.smalldomain_sum_count(*args), kname, 100)
+    timing = {"N": args[0].shape[0], "domain": args[3], "k": len(args[1]), "ms": ms, "launches_kept": kept,
+              "bound_ms": k1_bound_ms(*args), "plain_ms": cuda_ms(lambda: SD.smalldomain_sum_count_plain(*args), 2),
+              "library_ms": cuda_ms(k1_library_call(*args), 2)}
+    log(f"[timing] {name_power}: smalldomain_sum_count at Q1 SF{SF10:g} device-resident (N={timing['N']}, "
+        f"domain={timing['domain']}, k={timing['k']}): {ms:.4f} ms kernel alone (torch.profiler, {kept} of "
+        f"100 launches); byte bound {timing['bound_ms']:.4f} ms ({timing['bound_ms'] / ms:.1%} of bound); "
+        f"plain {timing['plain_ms']:.4f} ms; index_add_ {timing['library_ms']:.4f} ms")
+    del args
+    torch.cuda.empty_cache()
+    exp.require({p: SF10_QUERIES for p in ("host-resident cold", "host-resident warm", "cold", "check",
+                                           "replay", "eager", "exact")})
+    log(exp.line(name_power))
+    log(f"[sf10] {name_power}: peak device memory over the phase {max(peak.mb, peak.reset()):.1f} MiB; "
+        f"the phase took {time.perf_counter() - t_phase:.3f} s")
+    return {**host_launches, **dev_launches}, err, checked, timing
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device (torch.cuda.is_available() is False)", file=sys.stderr)
@@ -2668,7 +2946,7 @@ def main() -> int:
         phase_files(name_power, tmp)
         t_phase = phase_done("files", t_phase)
         phase_cli(name_power, tmp)
-        phase_done("cli", t_phase)
+        t_phase = phase_done("cli", t_phase)
     exp.require({
         **{p: TPCH_QUERIES for p in ("cold", "check", "replay", "eager", "exact", "mesh cold",
                                      "mesh last warm", "host-resident lineitem")},
@@ -2679,9 +2957,14 @@ def main() -> int:
         "mesh host-resident lineitem": (1,),
     })
     log(exp.line(name_power))
+    sf10_launches, sf10_err, sf10_checked, sf10_timing = phase_sf10(name_power)
+    err = max(err, sf10_err)
+    sql_checked += sf10_checked
+    phase_done("sf10", t_phase)
     log(f"[phase] all phases: {time.perf_counter() - t_main:.3f} s")
     by_path = {"q1": launches, **sql_launches, **{k: n for k, n in tpch_launches.items() if n},
-               "q1-sf10-host-resident-collect": morsel_launches, **mesh_launches, **dist_launches}
+               "q1-sf10-host-resident-collect": morsel_launches, **mesh_launches, **dist_launches,
+               **{k: n for k, n in sf10_launches.items() if n}}
 
     kernels = [{
         "name": "smalldomain_sum_count",
@@ -2698,6 +2981,7 @@ def main() -> int:
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
+        "sf10_q1_device": sf10_timing,
         "checked_against_plain": True,
         "checked_at": ["K1_CASES", "q1-main-path-inputs", "q1-main-path-captured-inputs",
                        *sql_checked],

@@ -261,8 +261,10 @@ def _ingest_values(values, dtype: DataType | None):
         return (dtype, codes, valid, d), n
 
     if arr.dtype == object or arr.dtype.kind in ("U", "S"):
-        items = list(values)
-        if all(isinstance(v, str) or v is None for v in items):
+        # an object array as it is (no copy into a list); one check per
+        # value type, not per value
+        items = arr if arr.dtype == object else list(values)
+        if all(issubclass(t, str) or t is type(None) for t in set(map(type, items))):
             d, codes, valid = StringDict.from_strings_masked(items)
             return (STRING, codes, valid, d), n
         # object column of numbers with Nones

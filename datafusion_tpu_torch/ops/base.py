@@ -16,7 +16,7 @@ from dataclasses import dataclass
 
 import torch
 
-from ..columnar.table import BUILD, Table
+from ..columnar.table import BUILD, HOST_SYNCS, Table
 from ..device import capturing
 from ..types import Schema
 
@@ -103,12 +103,14 @@ class ExecutionPlan:
             raise
         finally:
             st.depth = depth
-        # record the table, not out.nrows: reading nrows here would force a
+        # record the count, not out.nrows: reading nrows here would force a
         # device sync per operator (Table keeps lazy device-resident counts);
-        # collect_plan_metrics materializes on harvest.  Not while a CUDA
+        # collect_plan_metrics reads it on harvest.  Only the count: a cached
+        # plan that kept each operator's last output would hold every
+        # intermediate table on the card between collects.  Not while a CUDA
         # graph is captured: its tensors hold nothing until a replay
         if not capturing():
-            self._metrics_out = out
+            self._metrics_out = out.nrows_dev
         if getattr(self, "_dedup_shared", False):
             self._dedup_memo = (st.epoch, out)
         return out
@@ -156,7 +158,10 @@ def collect_plan_metrics(plan: ExecutionPlan, out=None) -> dict:
     key = type(plan).__name__
     mo = getattr(plan, "_metrics_out", None)
     if mo is not None:
-        plan.metrics.counter("output_rows").add(mo.nrows)
+        if not isinstance(mo, int):
+            HOST_SYNCS[0] += 1
+            mo = int(mo)
+        plan.metrics.counter("output_rows").add(mo)
         plan._metrics_out = None
     for name, v in plan.__dict__.pop("_lazy_metrics", {}).items():
         plan.metrics.counter(name).add(int(v))

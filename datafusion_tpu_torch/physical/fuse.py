@@ -16,6 +16,8 @@ does a join whose one side is a host table under filters and projections
 
 from __future__ import annotations
 
+import weakref
+
 from ..columnar.table import Table
 from ..datasource.host import HostMemoryExec
 from ..ops import kernels as K
@@ -28,7 +30,11 @@ from ..ops.window import WindowAggExec
 from .morsel import MorselJoinStageExec, MorselStageExec
 from .stage_compiler import CompiledStage, compilable, node_jit_safe
 
-_STAGE_CACHE: dict = {}
+# compiled stages by plan text and input signature, shared by the plans
+# that hold them; a stage's chain reaches its source table, so an entry
+# lives only while a plan holds its stage: a released context's tables
+# leave the card
+_STAGE_CACHE = weakref.WeakValueDictionary()
 
 
 class StageExec(ExecutionPlan):

@@ -1,10 +1,16 @@
-"""The reference's rows of the 22 TPC-H queries in a canonical form, and the
-check that holds an engine's rows to them.
+"""The reference's rows of TPC-H queries in a canonical form, and the check
+that holds an engine's rows to them.
 
-The expected file (``tests/data/torch_tpch_sf1_seed7.json.gz``, written by
-``tests/torch_expected_sf1.py``) holds, for ``tpchdata.generate_tpch(1.0,
-7)``:
+An expected file holds the rows of ``tpchdata.generate_tpch(sf, seed)``
+for the ``sf`` and ``seed`` it names: ``tests/data/torch_tpch_sf1_seed7.json.gz``
+the 22 queries at SF1 (written by ``tests/torch_expected_sf1.py``), and
+``tests/data/torch_tpch_sf10_seed7.json.gz`` ``bench/sf_check.py``'s nine
+at SF10, run with lineitem and orders host-resident (written by
+``tests/torch_expected_sf10.py``, which also records ``host_tables``,
+``morsel_rows`` and, per query, ``host_scans`` of the JAX package's plan).
+Each document holds:
 
+* ``sf`` and ``seed``;
 * ``tables``: ``table_digest`` of the generated arrays, so a reader knows
   its tables are the ones the rows came from;
 * ``queries``: per query (``"1"``..``"22"``) an entry with ``sql_sha256``
@@ -85,7 +91,7 @@ def check_texts(doc: dict, sql_of) -> None:
     for q in sorted(doc["queries"], key=int):
         if sql_digest(sql_of(int(q))) != doc["queries"][q]["sql_sha256"]:
             raise AssertionError(f"the text of Q{q} is not the one the expected file's rows come from: "
-                                 "write the file again (tests/torch_expected_sf1.py --write)")
+                                 f"write the file again (tests/torch_expected_sf{doc['sf']:g}.py --write)")
 
 
 def _converter(name: str, kind: str):
@@ -122,12 +128,18 @@ def _converter(name: str, kind: str):
     return typed({"float": float, "str": str, "int": int}[kind])
 
 
+_PLAIN = {"int": int, "str": str, "float": float}  # kinds whose values are their canonical form
+
+
 def _columns(rows: list, names: list, kinds: list) -> list:
     """The canonical values of ``rows``, column by column."""
     if not rows:
         return [[] for _ in kinds]
     out = []
     for col, name, kind in zip(zip(*rows), names, kinds):
+        if kind in _PLAIN and set(map(type, col)) <= {_PLAIN[kind], type(None)}:
+            out.append(list(col))  # already canonical: no value to convert or refuse
+            continue
         f = _converter(name, kind)
         out.append([None if v is None else f(v) for v in col])
     return out
@@ -158,11 +170,17 @@ def canonical(rows: list, columns: list) -> list:
 _JSON = json.JSONEncoder(ensure_ascii=False, separators=(",", ":"))
 
 
+# the JSON text of a value of one type, without JSONEncoder's overhead
+_JSON_OF_TYPE = {int: int.__repr__, str: json.encoder.encode_basestring}
+
+
 def _sha(values) -> str:
-    h = hashlib.sha256()
-    for v in values:
-        h.update(_JSON.encode(v).encode("utf-8") + b"\n")
-    return h.hexdigest()
+    """SHA-256 of the values' JSON texts, each followed by a newline."""
+    values = list(values)
+    types = set(map(type, values))
+    enc = _JSON_OF_TYPE.get(types.pop()) if len(types) == 1 else None
+    text = "\n".join(map(enc or _JSON.encode, values))
+    return hashlib.sha256((text + "\n" if values else "").encode("utf-8")).hexdigest()
 
 
 def sql_digest(text: str) -> str:
@@ -181,7 +199,8 @@ def entry(sql: str, rows: list, columns: list, ordered: bool, order_spec) -> dic
     if len(canon) < FULL_ROWS:
         out["values"] = [list(r) for r in canon]
     else:
-        out["column_digests"] = {str(j): _sha(r[j] for r in canon) for j in exact}
+        cols = list(zip(*canon))
+        out["column_digests"] = {str(j): _sha(cols[j]) for j in exact}
         out["floats"] = {str(j): [r[j] for r in canon] for j in floats}
     return out
 
@@ -235,8 +254,9 @@ def compare(label: str, got: dict, want: dict) -> None:
                 raise AssertionError(f"{label}: row {i} of {len(canon)} (canonical order) differs in "
                                      f"{bad}: {r} != {tuple(w)}")
         return
+    canon_cols = list(zip(*canon))
     for j in exact:
-        if _sha(r[j] for r in canon) != want["column_digests"][str(j)]:
+        if _sha(canon_cols[j] if canon_cols else ()) != want["column_digests"][str(j)]:
             raise AssertionError(f"{label}: column {names[j]} differs from the expected digest "
                                  f"({len(canon)} rows, as expected)")
     for j in floats:
@@ -244,6 +264,34 @@ def compare(label: str, got: dict, want: dict) -> None:
             if not _same_float(r[j], w):
                 raise AssertionError(f"{label}: row {i} of {len(canon)} (canonical order), column "
                                      f"{names[j]}: {r[j]!r}, want {w!r} (row {r})")
+
+
+# the table of a TPC-H column, by the column name's prefix
+_TPCH_TABLE_OF_PREFIX = {"l": "lineitem", "o": "orders", "c": "customer", "ps": "partsupp",
+                         "p": "part", "s": "supplier", "n": "nation", "r": "region"}
+_STREAMS = ("MorselStageExec", "MorselJoinStageExec")
+
+
+def host_scans(plan) -> list:
+    """How a physical plan of either engine reads its host-resident TPC-H
+    tables: sorted [kind, table] pairs, ``kind`` the class of each stage
+    that streams a table's morsels, or ``materialized`` for a host scan
+    that reads the table whole.  The plan is walked through its children
+    and the sources of its fused stages."""
+    seen, stack, out = set(), [plan], []
+    while stack:
+        n = stack.pop()
+        if id(n) in seen:
+            continue
+        seen.add(id(n))
+        kind = type(n).__name__
+        if kind in _STREAMS or kind == "HostMemoryExec":
+            table = _TPCH_TABLE_OF_PREFIX.get(n.host.names[0].split("_")[0], n.host.names[0])
+            out.append([kind if kind in _STREAMS else "materialized", table])
+        stack.extend(n.children())
+        if getattr(n, "_source", None) is not None:
+            stack.append(n._source)
+    return sorted(out)
 
 
 def load(path) -> dict:

@@ -1,13 +1,19 @@
 """The expected rows of the 22 TPC-H queries at SF1
-(``tests/data/torch_tpch_sf1_seed7.json.gz``) and their check
+(``tests/data/torch_tpch_sf1_seed7.json.gz``) and of ``bench/sf_check.py``'s
+nine at SF10 (``tests/data/torch_tpch_sf10_seed7.json.gz``), and their check
 (``datafusion_tpu_torch/queries/expected.py``):
 
 * the generator's SF1 tables still have the file's digests, so a change to
   ``tpchdata.py`` cannot leave the file stale unnoticed;
 * ``compare`` passes equal rows and raises on each kind of difference;
 * the port on the CPU at SF1 gives the file's rows for Q6 and Q14;
+* the SF10 file loads, has the form ``expected.py`` writes, its entries
+  were written from the port's query texts, and ``compare`` refuses a
+  changed value in a result kept in full and a result kept as digests;
 * (slow, about 10 minutes) ``tests/torch_expected_sf1.py`` writes the
-  committed file again from the JAX package.
+  committed file again from the JAX package; (slow, about 2 minutes and
+  15 GB of host memory) the generator's SF10 tables have the SF10 file's
+  digests.
 """
 
 from __future__ import annotations
@@ -20,15 +26,22 @@ import pytest
 
 import datafusion_tpu_torch as D
 from datafusion_tpu_torch import tpchdata
-from datafusion_tpu_torch.queries import expected, get_query_sql, run_tpch
+from datafusion_tpu_torch.queries import FULLY_ORDERED, ORDER_SPECS, expected, get_query_sql, run_tpch
 
 ROOT = Path(__file__).resolve().parents[1]
 FILE = ROOT / "tests" / "data" / "torch_tpch_sf1_seed7.json.gz"
+FILE10 = ROOT / "tests" / "data" / "torch_tpch_sf10_seed7.json.gz"
+SF10_QUERIES = (1, 3, 5, 6, 7, 9, 10, 12, 18)  # bench/sf_check.py's set
 
 
 @pytest.fixture(scope="module")
 def doc():
     return expected.load(FILE)
+
+
+@pytest.fixture(scope="module")
+def doc10():
+    return expected.load(FILE10)
 
 
 @pytest.fixture(scope="module")
@@ -152,3 +165,51 @@ def test_generator_reproduces_the_file(tmp_path, doc):
     subprocess.run([sys.executable, str(ROOT / "tests" / "torch_expected_sf1.py"), "--write",
                     "--out", str(out)], check=True, cwd=tmp_path, timeout=3600)
     assert expected.load(out) == doc
+
+
+def test_sf10_file_has_the_nine_queries_in_expected_form(doc10):
+    assert FILE10.stat().st_size < 512 * 1024
+    assert (doc10["sf"], doc10["seed"]) == (10.0, 7)
+    assert (doc10["host_tables"], doc10["morsel_rows"]) == (["lineitem", "orders"], 1 << 20)
+    assert sorted(doc10["tables"]) == sorted(tpchdata.generate_tpch(0.001, 7))
+    assert sorted(doc10["queries"], key=int) == [str(q) for q in SF10_QUERIES]
+    for q, e in doc10["queries"].items():
+        kinds = [k for _, k in e["columns"]]
+        assert e["rows"] > 0, q
+        assert e["ordered"] == (int(q) in FULLY_ORDERED), q
+        assert e["order_spec"] == [list(x) for x in ORDER_SPECS.get(int(q)) or []], q
+        if e["rows"] < expected.FULL_ROWS:
+            assert len(e["values"]) == e["rows"] and {len(r) for r in e["values"]} == {len(kinds)}, q
+        else:
+            assert "values" not in e, q
+            assert sorted(e["column_digests"], key=int) == [str(j) for j, k in enumerate(kinds) if k != "float"]
+            assert sorted(e["floats"], key=int) == [str(j) for j, k in enumerate(kinds) if k == "float"]
+            assert all(len(v) == e["rows"] for v in e["floats"].values()), q
+
+
+def test_sf10_query_texts_have_the_file_digests(doc10):
+    expected.check_texts(doc10, get_query_sql)
+
+
+def test_sf10_compare_refuses_a_changed_value(doc10):
+    """Q1 is kept in full: its own rows pass and one changed count is
+    refused.  Q3 is kept as digests (113k rows): rows of the right count
+    and kinds but other values are refused, naming the first column."""
+    want = doc10["queries"]["1"]
+    names = [n for n, _ in want["columns"]]
+    rows = [tuple(r) for r in want["values"]]
+    expected.compare("Q1", _result(rows, want["columns"]), want)
+    j = names.index("count_order")
+    with pytest.raises(AssertionError, match=r"differs in \['count_order'\]"):
+        expected.compare("Q1", _result(_with(rows, 2, j, rows[2][j] + 1), want["columns"]), want)
+    want = doc10["queries"]["3"]
+    assert "column_digests" in want
+    fake = {"int": 1, "str": "x", "date": "1995-03-15", "float": 1.0}
+    row = tuple(fake.get(k, 100) for _, k in want["columns"])
+    with pytest.raises(AssertionError, match=f"column {want['columns'][0][0]} differs from the expected digest"):
+        expected.compare("Q3", _result([row] * want["rows"], want["columns"]), want)
+
+
+@pytest.mark.slow
+def test_sf10_tables_have_the_file_digests(doc10):
+    expected.check_tables(tpchdata.generate_tpch(10.0, 7), doc10)
