@@ -10,11 +10,14 @@ speed hits both alike.  A process builds its tree's kernels, generates
 TPC-H at ``--sf`` (seed 7), registers the eight tables on the card and,
 per query: three collects (the cold run, the check, the capture of the
 CUDA graph and its replay), then ``--profiles`` replays under
-torch.profiler (kernel time: the device time of every kernel), then the
-median of ``--runs`` warm collects decoded to rows, each ending in a
+torch.profiler (kernel time: the device time of every kernel, not of the
+profiler ranges the profiler also lays on the device's timeline), then
+the median of ``--runs`` warm collects decoded to rows, each ending in a
 synchronize.  With ``--mesh N`` every collect runs over ``make_mesh(N)``
 (N logical shards on the card; no graph) and the profiles also read the
-device time of the exchanges' kernels (the ``spmd.exchange`` ranges).  It
+device time of the exchanges' kernels (the ``spmd.exchange`` ranges,
+which a tree with the port's tracer opens only while it is on: it is on
+for the profiled runs).  It
 prints one JSON line: per query the rows' digest, whether a graph was
 captured, the kernel and exchange times, the warm median and the cold
 run's peak device memory above what was allocated before it.
@@ -37,6 +40,12 @@ import time
 from pathlib import Path
 
 SEED = 7
+EXCHANGE_RANGE = "spmd.exchange"
+
+
+def is_range(key: str) -> bool:
+    """A profiler range (an exchange's, or a tracer span's), not a kernel."""
+    return key == EXCHANGE_RANGE or key.startswith("dftpu.")
 
 
 def worker(tree: str, queries: list, sf: float, runs: int, profiles: int, mesh_shards: int) -> dict:
@@ -51,6 +60,10 @@ def worker(tree: str, queries: list, sf: float, runs: int, profiles: int, mesh_s
 
     if not Path(D.__file__).resolve().is_relative_to(Path(tree).resolve()):
         raise RuntimeError(f"imported {D.__file__}, not the tree {tree}")
+    try:
+        from datafusion_tpu_torch import tracing
+    except ImportError:  # a tree before the tracer: its exchanges' ranges are always open
+        tracing = None
     build_all()
     mesh = None
     if mesh_shards:
@@ -81,15 +94,22 @@ def worker(tree: str, queries: list, sf: float, runs: int, profiles: int, mesh_s
         wq = getattr(plans[list(plans)[-1]], "_whole_query", None) if plans else None
         kernel_ms, exchange_ms = [], []
         for _ in range(profiles):
-            with profile(activities=activities) as prof:
-                run_tpch(ctx, q).to_pydict()
-                torch.cuda.synchronize()
+            if mesh is not None and tracing is not None:
+                tracing.enable()
+            try:
+                with profile(activities=activities) as prof:
+                    run_tpch(ctx, q).to_pydict()
+                    torch.cuda.synchronize()
+            finally:
+                if tracing is not None:
+                    tracing.disable()
+                    tracing.drain()
             events = prof.key_averages()
             kernel_ms.append(sum(
                 e.self_device_time_total for e in events
-                if e.device_type == torch.autograd.DeviceType.CUDA
+                if e.device_type == torch.autograd.DeviceType.CUDA and not is_range(e.key)
             ) / 1e3)
-            exchange_ms.append(sum(e.device_time_total for e in events if e.key == "spmd.exchange") / 1e3)
+            exchange_ms.append(sum(e.device_time_total for e in events if e.key == EXCHANGE_RANGE) / 1e3)
         times = []
         for _ in range(runs):
             t0 = time.perf_counter()

@@ -205,7 +205,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from datafusion_tpu_torch import ExecutionContext, tpchdata
+from datafusion_tpu_torch import ExecutionContext, tpchdata, tracing
 from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
 from datafusion_tpu_torch.columnar.table import HOST_SYNCS
 from datafusion_tpu_torch.cli import print_result
@@ -1766,12 +1766,20 @@ def phase_mesh(name_power: str, ctx, single: dict, q1_want: dict, exp: ExpectedR
     heavy = max(warm_ms, key=warm_ms.get)
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mesh_run(ctx, heavy, mesh)
-        wall = (time.perf_counter() - t0) * 1e3
+    # the exchanges' profiler ranges are the tracer's spans: on for this run
+    tracing.enable()
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            mesh_run(ctx, heavy, mesh)
+            wall = (time.perf_counter() - t0) * 1e3
+    finally:
+        tracing.disable()
+        tracing.drain()
     events = list(prof.key_averages())
-    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA]
+    # (the tracer's spans show on the device's timeline too: not kernels)
+    kernels = [e for e in events if e.device_type == torch.autograd.DeviceType.CUDA
+               and not e.key.startswith("dftpu.")]
     busy = sum(e.self_device_time_total for e in kernels) / 1e3
     xms = exchange_ms(prof)
     log(f"[mesh] {name_power}: Q{heavy} (the most mesh time) profiled: {wall:.3f} ms wall, kernel "
@@ -1779,7 +1787,8 @@ def phase_mesh(name_power: str, ctx, single: dict, q1_want: dict, exp: ExpectedR
         f"{1 - busy / wall:.1%}; the exchanges' kernels {xms:.3f} ms ({xms / max(busy, 1e-9):.1%} of kernel "
         f"time)")
     ops = sorted((e for e in events if e.device_type != torch.autograd.DeviceType.CUDA
-                  and e.key != EXCHANGE_RANGE), key=lambda e: e.self_device_time_total, reverse=True)
+                  and e.key != EXCHANGE_RANGE and not e.key.startswith("dftpu.")),
+                 key=lambda e: e.self_device_time_total, reverse=True)
     for e in ops[:12]:
         log(f"[mesh]   {e.self_device_time_total / 1e3:9.3f} ms device  {e.count:5d} calls  {e.key[:60]}")
 

@@ -115,7 +115,11 @@ class Column:
 
     def to_pylist(self, nrows: int) -> list:
         """Decode to Python values (strings decoded, decimals rescaled)."""
-        data, valid = self.to_numpy(nrows)
+        return self.numpy_to_pylist(*self.to_numpy(nrows))
+
+    def numpy_to_pylist(self, data: np.ndarray, valid: np.ndarray) -> list:
+        """``to_pylist`` of the rows ``to_numpy`` copied to the host."""
+        nrows = len(valid)
         if self.dtype.is_list:
             # element nulls are in-band sentinels, decoded per element
             # position (reference array() -> FixedSizeList,

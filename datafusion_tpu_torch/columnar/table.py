@@ -17,6 +17,7 @@ import threading
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device
 from ..errors import HostReadInWholeQuery, InternalError
 from ..types import Field, Schema
@@ -56,7 +57,8 @@ def host_values(t: torch.Tensor) -> list:
     device; counted in HOST_SYNCS)."""
     refuse_in_whole_query("reads a device value on the host")
     HOST_SYNCS[0] += 1
-    return t.tolist()
+    with tracing.span("dftpu.sync"):
+        return t.tolist()
 
 
 def host_numpy(t: torch.Tensor) -> np.ndarray:
@@ -64,7 +66,8 @@ def host_numpy(t: torch.Tensor) -> np.ndarray:
     counted in HOST_SYNCS)."""
     refuse_in_whole_query("copies a device tensor to the host")
     HOST_SYNCS[0] += 1
-    return t.cpu().numpy()
+    with tracing.span("dftpu.sync"):
+        return t.cpu().numpy()
 
 
 def round_capacity(n: int) -> int:
@@ -77,6 +80,9 @@ def round_capacity(n: int) -> int:
 
 
 class Table:
+    # the request (``tracing``) whose collect made this table
+    request: int | None = None
+
     def __init__(self, names: list[str], columns: list[Column], nrows, device=None):
         if len(names) != len(columns):
             raise InternalError("names/columns length mismatch")
@@ -99,7 +105,8 @@ class Table:
         if not isinstance(self._nrows, int):
             refuse_in_whole_query("reads a row count on the host")
             HOST_SYNCS[0] += 1
-            self._nrows = int(self._nrows)
+            with tracing.span("dftpu.sync"):
+                self._nrows = int(self._nrows)
         return self._nrows
 
     @property
@@ -181,9 +188,15 @@ class Table:
 
     # ---- export ----------------------------------------------------------------
     def to_pydict(self) -> dict[str, list]:
-        return {
-            n: c.to_pylist(self.nrows) for n, c in zip(self.names, self.columns)
-        }
+        with tracing.span("dftpu.decode", request=self.request):
+            n = self.nrows
+            out = {}
+            for name, c in zip(self.names, self.columns):
+                with tracing.span("dftpu.decode.copy"):
+                    data, valid = c.to_numpy(n)
+                with tracing.span("dftpu.decode.convert"):
+                    out[name] = c.numpy_to_pylist(data, valid)
+            return out
 
     def to_pandas(self):
         import pandas as pd

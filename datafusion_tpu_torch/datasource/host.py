@@ -30,6 +30,7 @@ import time
 import numpy as np
 import torch
 
+from .. import tracing
 from ..columnar.column import Column
 from ..columnar.dictionary import StringDict
 from ..columnar.table import Schema, Table, host_numpy, round_capacity
@@ -226,6 +227,10 @@ class HostTable:
         cols = []
         for dt, d, v, dic in zip(self.dtypes, self.datas, self.valids, self.dicts):
             cols.append(Column(dt, self._copy(d, lo, hi, cap), self._copy(v, lo, hi, cap), dic))
+        if tracing.enabled():
+            # the host rows copied: each column's data and validity
+            tracing.count("dftpu.h2d.bytes", sum(d[lo:hi].nbytes + v[lo:hi].nbytes
+                                                 for d, v in zip(self.datas, self.valids)))
         return Table(self.names, cols, k, device=self.device)
 
     def _copy(self, host: np.ndarray, lo: int, hi: int, cap: int) -> torch.Tensor:

@@ -25,6 +25,7 @@ from typing import Callable
 
 import torch
 
+from .. import tracing
 from ..catalog.catalog import (
     MemoryCatalogProvider,
     MemorySchemaProvider,
@@ -290,10 +291,12 @@ class ExecutionContext:
 
     # ---- planning (context.rs:172,214,449,478) ------------------------------
     def create_logical_plan(self, sql: str) -> LogicalPlan:
-        stmts = parse_sql(sql)
+        with tracing.span("dftpu.sql.parse"):
+            stmts = parse_sql(sql)
         if len(stmts) != 1:
             raise PlanError("expected a single SQL statement")
-        return SqlToRel(_Provider(self)).statement_to_plan(stmts[0])
+        with tracing.span("dftpu.sql.plan"):
+            return SqlToRel(_Provider(self)).statement_to_plan(stmts[0])
 
     def optimize(self, plan: LogicalPlan) -> LogicalPlan:
         for rule in self.config.optimizer_rules:
@@ -361,9 +364,16 @@ class ExecutionContext:
 
     # ---- entry point ------------------------------------------------------------
     def sql(self, sql: str) -> "DataFrame":
-        from .dataframe import DataFrame
+        """The statement's DataFrame, carrying a new request id
+        (``tracing``); DDL runs here and returns an empty one."""
+        request = tracing.new_request()
+        with tracing.span("dftpu.sql", request=request):
+            df = self._statement(self.create_logical_plan(sql))
+        df._request = request
+        return df
 
-        plan = self.create_logical_plan(sql)
+    def _statement(self, plan: LogicalPlan) -> "DataFrame":
+        from .dataframe import DataFrame
 
         # DDL executes eagerly, returning an empty frame (context.rs:172-213)
         if isinstance(plan, CreateExternalTable):
@@ -409,20 +419,31 @@ class ExecutionContext:
         planner = self.config.query_planner or DefaultPhysicalPlanner(self.device)
         return planner.create_physical_plan(self.optimize(plan))
 
-    def collect(self, plan: LogicalPlan, mesh=None) -> Table:
+    def collect(self, plan: LogicalPlan, mesh=None, request: int | None = None) -> Table:
         """Execute ``plan``.  With ``mesh`` (``parallel.mesh.make_mesh``),
-        the plan runs SPMD over the mesh (``parallel/executor.py``)."""
+        the plan runs SPMD over the mesh (``parallel/executor.py``).  The
+        result carries ``request`` (a new one when None) for its decode's
+        spans (``tracing``)."""
+        if request is None:
+            request = tracing.new_request()
+        with tracing.span("dftpu.collect", request=request):
+            out = self._collect(plan, mesh)
+        out.request = request
+        return out
+
+    def _collect(self, plan: LogicalPlan, mesh) -> Table:
         display = [f.name for f in plan.schema().fields]  # pre-optimization names
         if mesh is not None and not (isinstance(plan, Explain) and plan.verbose):
             return self._collect_on_mesh(plan, mesh, display)
-        key = (plan.display(), self._catalog_version)
-        phys = self._plan_cache.get(key)
-        if phys is None:
-            optimized = self.optimize(plan)
-            phys = self.create_physical_plan(optimized)
-            # volatile expressions must not freeze (now() is folded per query)
-            if "now()" not in key[0] and len(self._plan_cache) < 256:
-                self._plan_cache[key] = phys
+        with tracing.span("dftpu.collect.plan"):
+            key = (plan.display(), self._catalog_version)
+            phys = self._plan_cache.get(key)
+            if phys is None:
+                optimized = self.optimize(plan)
+                phys = self.create_physical_plan(optimized)
+                # volatile expressions must not freeze (now() is folded per query)
+                if "now()" not in key[0] and len(self._plan_cache) < 256:
+                    self._plan_cache[key] = phys
         from ..physical import query_compiler as QC
 
         try:
@@ -496,12 +517,16 @@ def _run(phys) -> Table:
     from ..ops import kernels as K
     from ..physical import query_compiler as QC
 
-    with K.spec_window() as w:
-        out = QC.try_whole_query(phys)
-        if out is None:
-            out = phys.execute()
-    if w.overflowed():
-        QC.invalidate(phys)
-        with K.spec_exact():
-            out = phys.execute()
+    with tracing.span("dftpu.collect.run"):
+        with K.spec_window() as w:
+            out = QC.try_whole_query(phys)
+            whole = out is not None
+            if not whole:
+                out = phys.execute()
+        tracing.count("dftpu.collect.whole" if whole else "dftpu.collect.eager")
+        if w.overflowed():
+            tracing.count("dftpu.collect.rerun")
+            QC.invalidate(phys)
+            with K.spec_exact():
+                out = phys.execute()
     return out

@@ -19,6 +19,8 @@ class DataFrame:
     def __init__(self, ctx, plan: LogicalPlan):
         self._ctx = ctx
         self._plan = plan
+        # the request (``tracing``) of the ``ctx.sql`` call that made it
+        self._request = None
 
     # ---- constructors ---------------------------------------------------------
     @staticmethod
@@ -117,7 +119,7 @@ class DataFrame:
     def collect(self, mesh=None) -> Table:
         """Execute the plan on the context's device, or with ``mesh``
         (``parallel.mesh.make_mesh``) SPMD over the mesh."""
-        return self._ctx.collect(self._plan, mesh=mesh)
+        return self._ctx.collect(self._plan, mesh=mesh, request=self._request)
 
     def collect_partitioned(self, mesh=None) -> list[Table]:
         """Per-partition results (dataframe.rs collect_partitioned): with a

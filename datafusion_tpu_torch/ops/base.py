@@ -11,11 +11,11 @@ Per-operator metrics mirror SQLMetric (mod.rs:59-122).
 from __future__ import annotations
 
 import threading
-import time
 from dataclasses import dataclass
 
 import torch
 
+from .. import tracing
 from ..columnar.table import BUILD, HOST_SYNCS, Table
 from ..device import capturing
 from ..types import Schema
@@ -23,11 +23,12 @@ from ..types import Schema
 
 @dataclass
 class SQLMetric:
-    """Counter or nanosecond timer (reference physical_plan/mod.rs:59-122)."""
+    """Counter (reference physical_plan/mod.rs:59-122).  The reference's
+    timers are left out: a host clock around asynchronous device work
+    times the enqueue (``tracing`` spans time the layers instead)."""
 
     name: str
     value: int = 0
-    is_time: bool = False
 
     def add(self, n: int):
         self.value += n
@@ -40,11 +41,6 @@ class MetricsSet:
     def counter(self, name: str) -> SQLMetric:
         if name not in self._metrics:
             self._metrics[name] = SQLMetric(name)
-        return self._metrics[name]
-
-    def timer(self, name: str) -> SQLMetric:
-        if name not in self._metrics:
-            self._metrics[name] = SQLMetric(name, is_time=True)
         return self._metrics[name]
 
     def items(self):
@@ -90,12 +86,8 @@ class ExecutionPlan:
                 return memo[1]
         st.depth = depth + 1
         try:
-            t0 = time.perf_counter_ns()
             self.metrics.counter("executions").add(1)
             out = self._execute()
-            # host time: kernels are queued asynchronously, so this times
-            # the enqueue, not the device work
-            self.metrics.timer("elapsed_ns").add(time.perf_counter_ns() - t0)
         except Exception as e:
             # a failed whole-query build names its innermost operator
             if BUILD.active and getattr(e, "node", None) is None:
@@ -160,7 +152,8 @@ def collect_plan_metrics(plan: ExecutionPlan, out=None) -> dict:
     if mo is not None:
         if not isinstance(mo, int):
             HOST_SYNCS[0] += 1
-            mo = int(mo)
+            with tracing.span("dftpu.sync"):
+                mo = int(mo)
         plan.metrics.counter("output_rows").add(mo)
         plan._metrics_out = None
     for name, v in plan.__dict__.pop("_lazy_metrics", {}).items():

@@ -34,6 +34,7 @@ import inspect
 
 import torch
 
+from .. import tracing
 from ..errors import InternalError
 
 
@@ -69,16 +70,16 @@ class Pmax(Collective):
     """The elementwise maximum of every shard's ``x``."""
 
 
-# the torch.profiler range of the exchanges' device work (the collectives'
-# copies and the shuffles' layout and packing), for the share of a mesh
-# query's kernel time they take
+# the span, and so the torch.profiler range while the tracer is on, of the
+# exchanges' device work (the collectives' copies and the shuffles' layout
+# and packing), for the share of a mesh query's kernel time they take
 EXCHANGE_RANGE = "spmd.exchange"
 
 
 def perform_local(reqs: list) -> list:
     """Each local shard's result of one collective among the local shards
     (the whole mesh in a single process)."""
-    with torch.profiler.record_function(EXCHANGE_RANGE):
+    with tracing.span(EXCHANGE_RANGE):
         return _perform_local(reqs)
 
 

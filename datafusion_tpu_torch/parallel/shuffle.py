@@ -29,6 +29,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..ops import kernels as K
 from .collectives import EXCHANGE_RANGE, AllToAll, exchange_columns
 from .mesh import segment_compaction
@@ -47,7 +48,7 @@ def hash_dest(key_hash: torch.Tensor, ndev: int) -> torch.Tensor:
     return (2 * (half % ndev) + (key_hash & 1)) % ndev
 
 
-@torch.profiler.record_function(EXCHANGE_RANGE)
+@tracing.spanned(EXCHANGE_RANGE)
 def _route(alive: torch.Tensor, dest: torch.Tensor, ndev: int, bucket: int):
     """The send layout: slot (s, k) of the [ndev * bucket] send buffer
     holds the k-th live row bound for shard s.  Each row's place in the
@@ -84,12 +85,12 @@ def _exchange(datas, valids, src, slot_live, sent, ndev: int, bucket: int):
     return recv[: len(datas)], recv[len(datas):], recv_counts
 
 
-@torch.profiler.record_function(EXCHANGE_RANGE)
+@tracing.spanned(EXCHANGE_RANGE)
 def _send_rows(datas, valids, src, slot_live) -> list:
     return [K.gather(d, src) for d in datas] + [v[src] & slot_live for v in valids]
 
 
-@torch.profiler.record_function(EXCHANGE_RANGE)
+@tracing.spanned(EXCHANGE_RANGE)
 def _compact(datas, valids, recv_counts, ndev: int, bucket: int):
     """Received rows packed to the front, and the receive slot of each
     packed row."""

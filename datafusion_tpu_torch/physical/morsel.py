@@ -35,6 +35,7 @@ import copy
 
 import torch
 
+from .. import tracing
 from ..columnar.column import Column, zeros_column
 from ..columnar.table import Table
 from ..datasource.host import HostMemoryExec, HostTable
@@ -130,12 +131,19 @@ class MorselStageExec(ExecutionPlan):
         )
 
     def _execute(self) -> Table:
-        outs = [self.stage.execute(src=m, ratchet=True) for m in self.host.stream_morsels()]
+        # each morsel's span takes in the copies the stream issues for
+        # the next one
+        morsels = self.host.stream_morsels()
+        outs = []
+        for _ in range(self.host.num_morsels):
+            with tracing.span("dftpu.morsel"):
+                outs.append(self.stage.execute(src=next(morsels), ratchet=True))
         self.metrics.counter("morsels").add(len(outs))
-        return _merge_and_finish(
-            outs, self.per_morsel_plan.schema(), self.agg, self._distinct_values,
-            self.above, owner=self,
-        )
+        with tracing.span("dftpu.morsel.merge"):
+            return _merge_and_finish(
+                outs, self.per_morsel_plan.schema(), self.agg, self._distinct_values,
+                self.above, owner=self,
+            )
 
 
 def _attach_partial_agg(agg, per):
@@ -311,32 +319,36 @@ class MorselJoinStageExec(ExecutionPlan):
         probe = self._probe
         visited = out_dics = None
         outs: list[Table] = []
-        for cur in self.host.stream_morsels():
-            if self._host_stage is not None:
-                cur = self._host_stage.execute(src=cur, ratchet=True)
-            probe.table = cur
-            jt_out = join_node.execute()
-            if rowid_idx is not None:
-                rid = jt_out.columns[rowid_idx]
-                live = torch.arange(jt_out.capacity, device=rid.data.device) < jt_out.nrows_dev
-                rcap = dev_tbl.capacity
-                # the device rows this morsel matched (slot rcap: no match)
-                idx = torch.where(rid.valid & live, rid.data, rcap)
-                upd = torch.zeros(rcap + 1, dtype=torch.bool, device=idx.device).index_fill_(0, idx, True)
-                visited = upd[:rcap] if visited is None else visited | upd[:rcap]
-                keep = [j for j in range(len(jt_out.columns)) if j != rowid_idx]
-                if out_dics is None:
-                    out_dics = [jt_out.columns[j].dictionary for j in keep]
-                jt_out = Table([jt_out.names[j] for j in keep], [jt_out.columns[j] for j in keep],
-                               jt_out.nrows_dev, device=jt_out.device)
-            outs.append(self._per_morsel(jt_out))
+        morsels = self.host.stream_morsels()
+        for _ in range(self.host.num_morsels):
+            with tracing.span("dftpu.morsel"):
+                cur = next(morsels)
+                if self._host_stage is not None:
+                    cur = self._host_stage.execute(src=cur, ratchet=True)
+                probe.table = cur
+                jt_out = join_node.execute()
+                if rowid_idx is not None:
+                    rid = jt_out.columns[rowid_idx]
+                    live = torch.arange(jt_out.capacity, device=rid.data.device) < jt_out.nrows_dev
+                    rcap = dev_tbl.capacity
+                    # the device rows this morsel matched (slot rcap: no match)
+                    idx = torch.where(rid.valid & live, rid.data, rcap)
+                    upd = torch.zeros(rcap + 1, dtype=torch.bool, device=idx.device).index_fill_(0, idx, True)
+                    visited = upd[:rcap] if visited is None else visited | upd[:rcap]
+                    keep = [j for j in range(len(jt_out.columns)) if j != rowid_idx]
+                    if out_dics is None:
+                        out_dics = [jt_out.columns[j].dictionary for j in keep]
+                    jt_out = Table([jt_out.names[j] for j in keep], [jt_out.columns[j] for j in keep],
+                                   jt_out.nrows_dev, device=jt_out.device)
+                outs.append(self._per_morsel(jt_out))
         probe.table = None
         self.metrics.counter("morsels").add(len(outs))
-        if rowid_idx is not None:
-            outs.append(self._per_morsel(self._unmatched(jschema, dev_tbl, visited, out_dics)))
-        return _merge_and_finish(
-            outs, self._per_schema, self.agg, self._distinct_values, self.above, owner=self,
-        )
+        with tracing.span("dftpu.morsel.merge"):
+            if rowid_idx is not None:
+                outs.append(self._per_morsel(self._unmatched(jschema, dev_tbl, visited, out_dics)))
+            return _merge_and_finish(
+                outs, self._per_schema, self.agg, self._distinct_values, self.above, owner=self,
+            )
 
     def _per_morsel(self, jt_out: Table) -> Table:
         if self._per_stage is None:
