@@ -18,6 +18,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from .. import tracing
 from ..device import resolve_device, torch_dtype
 from ..types.dtypes import DataType
 from .dictionary import StringDict
@@ -46,6 +47,70 @@ def list_element_valid(elem: DataType, data: np.ndarray) -> np.ndarray:
     if st == np.bool_:
         return np.ones(data.shape, bool)
     return data != np.iinfo(st).min
+
+
+# days from 1970-01-01 to datetime.date's first and last day
+_DAY_MIN = (_dt.date.min - _dt.date(1970, 1, 1)).days
+_DAY_MAX = (_dt.date.max - _dt.date(1970, 1, 1)).days
+# microseconds from the epoch within which float seconds (``v / 1e6``, as
+# ``datetime.fromtimestamp`` takes them) are off by under half a microsecond,
+# so they round back to ``v``
+_US_EXACT = 2**32 * 10**6
+
+
+def _in_range(data: np.ndarray, live: np.ndarray, lo: int, hi: int) -> bool:
+    """Whether every live value lies in [lo, hi]."""
+    v = data[live]
+    return not v.size or (int(v.min()) >= lo and int(v.max()) <= hi)
+
+
+def _values(dtype: DataType, dictionary, data: np.ndarray, live: np.ndarray):
+    """(vals, exact): an array whose ``.tolist()`` gives each live row's
+    Python value (anything at the other rows), built by whole-column numpy
+    conversions; ``exact`` where a column's values are out of their range
+    and the array was built value by value, as Python computes them."""
+    if dtype.is_string:
+        assert dictionary is not None
+        return dictionary.decode(data), False
+    if dtype.is_decimal:
+        scale = 10**dtype.scale
+        # both operands exact in float64: IEEE division rounds the quotient
+        # as Python's int / int does
+        if dtype.scale <= 22 and _in_range(data, live, -(2**53), 2**53):
+            return data.astype(np.float64) / float(scale), False
+        return np.array([v / scale for v in data.tolist()], dtype=np.float64), True
+    if dtype.kind == "date32":
+        if _in_range(data, live, _DAY_MIN, _DAY_MAX):
+            days, inv = np.unique(data, return_inverse=True)
+            return days.astype("datetime64[D]").astype(object)[inv], False
+        epoch = _dt.date(1970, 1, 1)
+        return _per_live(data, live, lambda v: epoch + _dt.timedelta(days=v)), True
+    if dtype.kind == "timestamp":
+        if _in_range(data, live, 1 - _US_EXACT, _US_EXACT - 1):
+            return data.astype("datetime64[us]").astype(object), False
+        utc = _dt.timezone.utc
+        return _per_live(
+            data, live, lambda v: _dt.datetime.fromtimestamp(v / 1e6, tz=utc).replace(tzinfo=None)
+        ), True
+    # ints, uints, intervals, the null type, floats (float32 widened), bools
+    return data, False
+
+
+def _per_live(data: np.ndarray, live: np.ndarray, fn) -> np.ndarray:
+    """An object array of ``fn(int(v))`` at the live rows."""
+    out = np.empty(len(data), dtype=object)
+    for i in np.flatnonzero(live).tolist():
+        out[i] = fn(int(data[i]))
+    return out
+
+
+def _with_nulls(vals: np.ndarray, valid: np.ndarray) -> list:
+    """``vals.tolist()`` with None at the rows ``valid`` clears."""
+    if valid.all():
+        return vals.tolist()
+    out = vals.astype(object)
+    out[~valid] = None
+    return out.tolist()
 
 
 @dataclass
@@ -118,51 +183,29 @@ class Column:
         return self.numpy_to_pylist(*self.to_numpy(nrows))
 
     def numpy_to_pylist(self, data: np.ndarray, valid: np.ndarray) -> list:
-        """``to_pylist`` of the rows ``to_numpy`` copied to the host."""
-        nrows = len(valid)
-        if self.dtype.is_list:
+        """``to_pylist`` of the rows ``to_numpy`` copied to the host, built
+        a whole column at a time (``_values``)."""
+        if not self.dtype.is_list:
+            vals, exact = _values(self.dtype, self.dictionary, data, valid)
+            rows = _with_nulls(vals, valid)
+        else:
             # element nulls are in-band sentinels, decoded per element
             # position (reference array() -> FixedSizeList,
             # array_expressions.rs:63)
-            k = self.dtype.list_size
             ev = list_element_valid(self.dtype.elem, data)
-            elems = [
-                Column(
-                    self.dtype.elem,
-                    torch.from_numpy(np.ascontiguousarray(data[:, j])),
-                    torch.from_numpy(np.ascontiguousarray(ev[:, j])),
-                    self.dictionary,
-                ).to_pylist(nrows)
-                for j in range(k)
-            ]
-            if not k:
-                return [[] if ok else None for ok in valid]
-            return [list(vals) if ok else None for vals, ok in zip(zip(*elems), valid)]
-        if self.dtype.is_string:
-            assert self.dictionary is not None
-            vals = self.dictionary.decode(data)
-            return [v if ok else None for v, ok in zip(vals, valid)]
-        if self.dtype.is_decimal:
-            scale = 10 ** self.dtype.scale
-            return [int(v) / scale if ok else None for v, ok in zip(data, valid)]
-        if self.dtype.kind == "date32":
-            epoch = _dt.date(1970, 1, 1)
-            return [
-                epoch + _dt.timedelta(days=int(v)) if ok else None
-                for v, ok in zip(data, valid)
-            ]
-        if self.dtype.kind == "timestamp":
-            return [
-                _dt.datetime.fromtimestamp(int(v) / 1e6, tz=_dt.timezone.utc).replace(tzinfo=None)
-                if ok
-                else None
-                for v, ok in zip(data, valid)
-            ]
-        if self.dtype.is_bool:
-            return [bool(v) if ok else None for v, ok in zip(data, valid)]
-        if self.dtype.is_float:
-            return [float(v) if ok else None for v, ok in zip(data, valid)]
-        return [v.item() if ok else None for v, ok in zip(data, valid)]
+            out = np.empty(data.shape, dtype=object)
+            exact = False
+            for j in range(data.shape[1]):
+                vals, e = _values(self.dtype.elem, self.dictionary, data[:, j], ev[:, j] & valid)
+                out[:, j] = vals
+                exact |= e
+            out[~ev] = None
+            rows = out.tolist()
+            if not valid.all():
+                rows = [r if ok else None for r, ok in zip(rows, valid.tolist())]
+        if exact:
+            tracing.count("dftpu.decode.exact")
+        return rows
 
     def with_capacity(self, capacity: int) -> "Column":
         """Grow/shrink padding to a new static capacity."""

@@ -103,13 +103,11 @@ class StringDict:
         return int(np.searchsorted(self.values.astype(str), s, side=side))
 
     def decode(self, codes: np.ndarray) -> np.ndarray:
-        out = np.empty(len(codes), dtype=object)
-        cl = np.clip(codes, 0, max(len(self.values) - 1, 0))
-        if len(self.values):
-            out[:] = self.values[cl]
-        else:
-            out[:] = None
-        return out
+        """The strings of ``codes`` as an object array; codes out of range
+        (those of null rows) are clipped into it."""
+        if not len(self.values):
+            return np.full(len(codes), None, dtype=object)
+        return self.values.take(np.clip(codes, 0, len(self.values) - 1))
 
     def map_values(self, fn) -> tuple["StringDict", np.ndarray]:
         """Apply a str->str function per distinct value; returns

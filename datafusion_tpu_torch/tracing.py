@@ -29,8 +29,10 @@ A request is one query: ``ExecutionContext.sql`` assigns it, the
 and the counters of ``.run``: ``dftpu.collect.whole`` when the plan ran
 as one unit, ``dftpu.collect.eager`` when it ran node by node, and
 ``dftpu.collect.rerun`` when an overflow reran it exactly; and
-``dftpu.h2d.bytes``, the host rows copied to the device.  No span or
-counter reads a device value.
+``dftpu.h2d.bytes``, the host rows copied to the device.  The decode counts
+``dftpu.decode.exact``: the result columns converted value by value, their
+values being outside the whole-column conversions' ranges
+(``columnar/column.py``).  No span or counter reads a device value.
 
 Records stay in memory, at most ``CAPACITY`` (the oldest go first);
 ``drain()`` returns and clears them.

@@ -2,7 +2,8 @@
 it records nothing and reads no clock; on, its spans nest under the right
 parents and share the query's request id, its counters count what the
 collect did (eager, whole, an exact rerun and the bytes copied to the
-device), and it leaves every host sync as it was."""
+device) and the result columns the decode converted value by value, and it
+leaves every host sync as it was."""
 
 import numpy as np
 import pytest
@@ -10,6 +11,7 @@ import torch
 
 import datafusion_tpu_torch as D
 from datafusion_tpu_torch import tracing
+from datafusion_tpu_torch.columnar.convert import table_from_host
 from datafusion_tpu_torch.columnar.table import HOST_SYNCS
 from datafusion_tpu_torch.datasource.host import HostTable
 from datafusion_tpu_torch.parallel.collectives import EXCHANGE_RANGE
@@ -210,6 +212,26 @@ def test_decode_spans_once_per_column():
     parts = [s for s in rec.spans if s.name.startswith("dftpu.decode.")]
     assert [s.name for s in parts] == ["dftpu.decode.copy", "dftpu.decode.convert"] * 4
     assert {ids[s.parent].name for s in parts} == {"dftpu.decode"}
+
+
+@pytest.mark.parametrize("values, exact", [
+    ([2**53 + 1, 5], 1),  # past 2**53: value by value, counted once
+    ([2**53, -(2**53)], 0),  # within: float64 division
+    ([5, None], 0),  # a null row's storage past 2**53 does not count
+])
+def test_decode_counts_columns_converted_value_by_value(values, exact):
+    data = np.array([0 if v is None else v for v in values], np.int64)
+    valid = np.array([v is not None for v in values])
+    if not valid.all():
+        data[~valid] = 2**62
+    table = table_from_host(["d", "i"], ["decimal(18,2)", "int64"], [data, data], [valid, None],
+                            [None, None], len(values), device="cpu")
+    tracing.enable()
+    rows = table.to_pydict()
+    rec = tracing.drain()
+    assert rows["d"] == [None if v is None else v / 100 for v in values]
+    assert rec.counters.get((None, "dftpu.decode.exact"), 0) == exact
+    assert {name for _, name in rec.counters} <= {"dftpu.decode.exact"}
 
 
 @pytest.mark.parametrize("host", [False, True], ids=["device", "host"])
