@@ -336,7 +336,11 @@ def cross_join_tables(lt: Table, rt: Table) -> Table:
                 for c in b.columns
             ]
             l_out, r_out = (acols, bcols) if not flip else (bcols, acols)
-            return Table(list(lt.names) + list(rt.names), l_out + r_out, a.nrows_dev, device=dev)
+            out = Table(list(lt.names) + list(rt.names), l_out + r_out, a.nrows_dev, device=dev)
+            # a's buffers and row count: sized as a was (a consumer that
+            # right-sizes its input reads no count for a learned one)
+            out._cap_learned = a._cap_learned
+            return out
     total = lt.nrows * rt.nrows
     out_cap = round_capacity(max(total, 1))
     r = torch.arange(out_cap, device=dev)

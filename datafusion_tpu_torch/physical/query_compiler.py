@@ -58,6 +58,7 @@ from pathlib import Path
 
 import torch
 
+from .. import tracing
 from ..columnar.column import Column
 from ..columnar.table import BUILD, Table
 from ..errors import HostReadInWholeQuery
@@ -285,6 +286,7 @@ class WholeQuery:
         out._cap_learned = True
         return out
 
+    @tracing.spanned("dftpu.collect.capture")
     def _capture(self) -> bool:
         from ..exprs.physical import device_tables
         from ..ops import kernels as K
@@ -322,6 +324,8 @@ class WholeQuery:
         self._pins = device_tables()
         _HOLDING.add(self)
         weakref.finalize(self, _forget_pool, device)
+        tracing.count("dftpu.graph.captures")
+        tracing.count("dftpu.graph.pool_bytes", self.pool_growth)
         return True
 
     def _replay(self) -> Table:

@@ -19,6 +19,8 @@ A request is one query: ``ExecutionContext.sql`` assigns it, the
   dftpu.collect        ExecutionContext.collect; children .plan (the plan
                        cache's key and lookup, and optimize and physical
                        planning on a miss) and .run
+  dftpu.collect.capture  a plan's capture into a CUDA graph, inside .run
+                       (``physical/query_compiler.py``)
   dftpu.sync           a host read of a device value (each ``HOST_SYNCS``
                        increment, ``columnar/table.py``)
   dftpu.morsel         one morsel of a morsel stage
@@ -28,11 +30,14 @@ A request is one query: ``ExecutionContext.sql`` assigns it, the
 
 and the counters of ``.run``: ``dftpu.collect.whole`` when the plan ran
 as one unit, ``dftpu.collect.eager`` when it ran node by node, and
-``dftpu.collect.rerun`` when an overflow reran it exactly; and
-``dftpu.h2d.bytes``, the host rows copied to the device.  The decode counts
-``dftpu.decode.exact``: the result columns converted value by value, their
-values being outside the whole-column conversions' ranges
-(``columnar/column.py``).  No span or counter reads a device value.
+``dftpu.collect.rerun`` when an overflow reran it exactly; a capture's
+``dftpu.graph.captures`` (one per graph captured) and
+``dftpu.graph.pool_bytes`` (the bytes the graphs' shared pool grew by in
+it); and ``dftpu.h2d.bytes``, the host rows copied to the device.  The
+decode counts ``dftpu.decode.exact``: the result columns converted value
+by value, their values being outside the whole-column conversions'
+ranges (``columnar/column.py``).  No span or counter reads a device
+value.
 
 Records stay in memory, at most ``CAPACITY`` (the oldest go first);
 ``drain()`` returns and clears them.

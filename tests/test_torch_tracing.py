@@ -2,8 +2,11 @@
 it records nothing and reads no clock; on, its spans nest under the right
 parents and share the query's request id, its counters count what the
 collect did (eager, whole, an exact rerun and the bytes copied to the
-device) and the result columns the decode converted value by value, and it
-leaves every host sync as it was."""
+device), each CUDA-graph capture (faked here, where there is no card) and
+the bytes it grew the graphs' pool by, and the result columns the decode
+converted value by value, and it leaves every host sync as it was."""
+
+import contextlib
 
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ from datafusion_tpu_torch.columnar.table import HOST_SYNCS
 from datafusion_tpu_torch.datasource.host import HostTable
 from datafusion_tpu_torch.parallel.collectives import EXCHANGE_RANGE
 from datafusion_tpu_torch.parallel.mesh import make_mesh
+from datafusion_tpu_torch.physical import query_compiler as QC
 
 GROUPED = "SELECT g, sum(v) AS s, count(*) AS c FROM t GROUP BY g ORDER BY g"
 MORSEL = 1024
@@ -163,6 +167,106 @@ def test_forced_overflow_counts_a_rerun():
     ids = _by_id(rec.spans)
     # the overflow flag is read inside the collect's run
     assert any(s.name == "dftpu.sync" and ids[s.parent].name == "dftpu.collect.run" for s in rec.spans)
+
+
+class _FakeGraphs:
+    """The CUDA calls of ``query_compiler``'s capture and replay, faked on
+    the CPU: the plans' state takes its device to be a card, a capture
+    runs the plan once (as the real one records it) and grows the reserved
+    memory by the next of ``GROWTH``, a replay does nothing, so its
+    outputs are the capture's."""
+
+    GROWTH = (3 << 20, 5 << 20, 7 << 20)
+
+    def __init__(self, monkeypatch):
+        self.reserved, self.captures = 0, 0
+        fake = self
+
+        class Graph:
+            def capture_begin(self, **_):
+                pass
+
+            def capture_end(self):
+                fake.reserved += fake.GROWTH[fake.captures % len(fake.GROWTH)]
+                fake.captures += 1
+
+            def replay(self):
+                pass
+
+        class Stream:
+            def wait_stream(self, _):
+                pass
+
+        class Pool:
+            id = (0, 1)
+
+        cuda = torch.cuda
+        for name, value in [("CUDAGraph", Graph), ("Stream", lambda *_: Stream()),
+                            ("current_stream", lambda *_: Stream()), ("MemPool", Pool),
+                            ("stream", lambda _: contextlib.nullcontext()),
+                            ("device", lambda _: contextlib.nullcontext()),
+                            ("synchronize", lambda *_: None), ("empty_cache", lambda: None),
+                            ("set_sync_debug_mode", lambda _: None),
+                            ("memory_reserved", lambda *_: fake.reserved)]:
+            monkeypatch.setattr(cuda, name, value)
+        monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, _: None)
+        monkeypatch.setattr(QC, "_POOLS", {})
+        monkeypatch.setattr(QC, "_STREAMS", {})
+        init = QC.WholeQuery.__init__
+
+        def on_a_card(wq, phys):
+            init(wq, phys)
+            if wq.device is not None:
+                wq.device = torch.device("cuda", 0)
+
+        monkeypatch.setattr(QC.WholeQuery, "__init__", on_a_card)
+
+
+def _counts(rec) -> dict:
+    return {name: n for (_, name), n in rec.counters.items()}
+
+
+def test_capture_records_nothing_while_off(monkeypatch):
+    fake = _FakeGraphs(monkeypatch)
+    ctx = _ctx()
+    want = _query(ctx)
+    for _ in range(4):
+        assert _query(ctx) == want
+    assert fake.captures == 1
+    rec = tracing.drain()
+    assert rec.spans == [] and rec.counters == {}
+
+
+def test_capture_spans_and_counts_each_graph_once(monkeypatch):
+    """Two plans, five collects each: the third captures (one span inside
+    the collect's run, one capture, the pool's growth in bytes), the
+    replays after it capture nothing."""
+    fake = _FakeGraphs(monkeypatch)
+    ctx = _ctx()
+    other = "SELECT k, sum(v) AS s FROM t WHERE v > 100 GROUP BY k ORDER BY k"
+    tracing.enable()
+    seen, pool = [], 0
+    for sql in (GROUPED, other):
+        want = None
+        for i in range(5):
+            rows = _query(ctx, sql)
+            want = want or rows
+            assert rows == want
+            rec = tracing.drain()
+            c = _counts(rec)
+            spans = [s for s in rec.spans if s.name == "dftpu.collect.capture"]
+            seen.append((len(spans), c.get("dftpu.graph.captures", 0), c.get("dftpu.collect.whole", 0)))
+            if spans:
+                ids = _by_id(rec.spans)
+                assert [ids[s.parent].name for s in spans] == ["dftpu.collect.run"]
+                assert {k[0] for k in rec.counters} == {spans[0].request}
+                pool += c["dftpu.graph.pool_bytes"]
+            else:
+                assert "dftpu.graph.pool_bytes" not in c
+    assert seen == [(0, 0, 0), (0, 0, 1), (1, 1, 1), (0, 0, 1), (0, 0, 1)] * 2
+    growth = [wq.pool_growth for wq in (p._whole_query for p in ctx._plan_cache.values())]
+    assert fake.captures == 2 and sorted(growth) == list(_FakeGraphs.GROWTH[:2])
+    assert pool == sum(growth) == (3 << 20) + (5 << 20)
 
 
 def test_h2d_bytes_are_the_host_tables_morsels():
