@@ -13,9 +13,12 @@ once when the table is made or moved to the card (``pin_seconds``): a
 copy from pageable memory is synchronous whatever ``non_blocking`` says,
 while a copy from pinned memory runs on a copy engine beside the kernels.
 A morsel's columns are then views of the pinned buffers, copied straight
-into device buffers; ``stream_morsels`` issues morsel i+1's copies on a
-side stream before the caller computes on morsel i.  The rows past the
-last morsel's end are zeroed on the device.
+into one device staging buffer per loop; ``stream_morsels``
+(``MorselStream``) issues morsel i+1's copies on a side stream before the
+caller computes on morsel i, and hands each morsel over in a fresh buffer
+or in the loop's static one, which a CUDA graph of the morsel's work reads
+(``physical/morsel.py``).  The rows past the last morsel's end are zeroed
+on the device.
 
 ``HostMemoryExec`` is a ``MemoryExec``, so a consumer that needs the
 whole table (a join whose probe cannot stream, the distributed planner)
@@ -181,39 +184,9 @@ class HostTable:
             raise InternalError(f"morsel {i} out of range")
         return self._upload(lo, hi, round_capacity(m))
 
-    def stream_morsels(self):
-        """Each morsel's device Table, in order.  On the card every morsel's
-        copies run on a side stream, issued one morsel ahead: morsel i+1 is
-        copied while the caller's kernels run on morsel i.  The caller's
-        stream waits for a morsel's copies (an event, not a host wait)
-        before it receives the morsel, and each device buffer is recorded
-        on the caller's stream, so the allocator reuses it only after the
-        caller's work on it."""
-        m = self.num_morsels
-        if self.device.type != "cuda":
-            for i in range(m):
-                yield self.morsel(i)
-            return
-        main = torch.cuda.current_stream(self.device)
-        side = _copy_stream(self.device)
-
-        def issue(i):
-            with torch.cuda.stream(side):
-                t = self.morsel(i)
-                done = torch.cuda.Event()
-                done.record(side)
-            return t, done
-
-        nxt = issue(0)
-        for i in range(m):
-            cur, done = nxt
-            if i + 1 < m:
-                nxt = issue(i + 1)
-            main.wait_event(done)
-            for c in cur.columns:
-                c.data.record_stream(main)
-                c.valid.record_stream(main)
-            yield cur
+    def stream_morsels(self) -> "MorselStream":
+        """The morsels' device Tables, in order (``MorselStream``)."""
+        return MorselStream(self)
 
     def materialize(self) -> Table:
         """The whole table on the device, for consumers that need it all
@@ -264,6 +237,139 @@ def _copy_stream(device: torch.device) -> torch.cuda.Stream:
     if device not in _COPY_STREAMS:
         _COPY_STREAMS[device] = torch.cuda.Stream(device)
     return _COPY_STREAMS[device]
+
+
+# byte alignment of each buffer inside a morsel's flat device buffer
+_ALIGN = 256
+
+
+class MorselStream:
+    """The morsels of a HostTable, in order, each as a device Table
+    (``next``), or on the card in the loop's one static buffer
+    (``next_static``).
+
+    On the card the rows go from pinned memory into one staging buffer,
+    allocated once per loop: every column's data and validity and the
+    morsel's row count, in one flat byte buffer.  The copies run on a side
+    stream, issued one morsel ahead: morsel i+1 is copied while the
+    caller's kernels run on morsel i.  To receive a morsel, the caller's
+    stream waits for its copies (an event, not a host wait) and copies the
+    staging buffer, device to device and in one launch, into the morsel's
+    own buffer, which only the caller's stream uses: a fresh one, or the
+    static one, whose addresses stay fixed for the loop (a CUDA graph
+    reads them).  The side stream writes the next morsel only after that
+    copy.  The rows past the short last morsel's end are zeroed."""
+
+    def __init__(self, host: HostTable):
+        self.host = host
+        self.i = 0  # the next morsel
+        self.device = host.device
+        if self.device.type != "cuda":
+            return
+        self.capacity = round_capacity(host.morsel_rows)
+        # each column's data and validity: (byte offset, bytes, torch
+        # dtype, shape) inside a flat buffer whose first 8 bytes hold the
+        # row count
+        self._arrays = [a for pair in zip(host.datas, host.valids) for a in pair]
+        self._layout, off = [], _ALIGN
+        for a in self._arrays:
+            shape = (self.capacity,) + a.shape[1:]
+            nbytes = a.dtype.itemsize * int(np.prod(shape, dtype=np.int64))
+            self._layout.append((off, nbytes, torch_dtype(a.dtype), shape))
+            off += -(-nbytes // _ALIGN) * _ALIGN
+        self._side = _copy_stream(self.device)
+        # the side stream writes it first: allocated there, so no work of
+        # the caller's that is still queued holds its memory, and freed
+        # only after the caller's copies out of it
+        with torch.cuda.stream(self._side):
+            self._staging = torch.empty(off, dtype=torch.uint8, device=self.device)
+        self._staging.record_stream(torch.cuda.current_stream(self.device))
+        self._staging_views = self._views(self._staging)
+        self._static = self._static_table = None
+        m = host.morsel_rows
+        self._rows = [min(m, host.nrows - i * m) for i in range(host.num_morsels)]
+        self._counts = torch.tensor(self._rows, dtype=torch.int64).pin_memory()
+        self._received = None  # the caller's copy out of the staging buffer
+        self._issue(0)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Table:
+        if self.i >= self.host.num_morsels:
+            raise StopIteration
+        if self.device.type != "cuda":
+            self.i += 1
+            return self.host.morsel(self.i - 1)
+        buf = torch.empty_like(self._staging)
+        k = self._receive(buf)
+        return self._table(buf, k)
+
+    def next_static(self) -> Table:
+        """The next morsel in the loop's static buffer (on the card only),
+        its row count a device value: every morsel has the same buffers
+        and the same capacity, whose learned sizes it keeps
+        (``_cap_learned``).  Valid until the next call."""
+        if self.device.type != "cuda" or self.i >= self.host.num_morsels:
+            raise InternalError("no static morsel to stream")
+        if self._static is None:
+            self._static = torch.empty_like(self._staging)
+            t = self._table(self._static, self._static[:8].view(torch.int64)[0])
+            t._cap_learned = True
+            self._static_table = t
+        self._receive(self._static)
+        return self._static_table
+
+    def copy_static(self) -> Table:
+        """The static buffer's morsel (the one ``next_static`` returned
+        last) in a fresh buffer, its row count on the host."""
+        buf = self._static.clone()
+        return self._table(buf, self._rows[self.i - 1])
+
+    def _issue(self, i: int) -> None:
+        """Copy morsel i into the staging buffer on the side stream."""
+        lo = i * self.host.morsel_rows
+        k = self._rows[i]
+        hi = lo + k
+        with torch.cuda.stream(self._side):
+            if self._received is not None:
+                self._side.wait_event(self._received)
+            self._staging[:8].view(torch.int64).copy_(self._counts[i:i + 1], non_blocking=True)
+            for a, dst in zip(self._arrays, self._staging_views):
+                if k:
+                    dst[:k].copy_(torch.from_numpy(a[lo:hi]), non_blocking=True)
+                if k < self.capacity:
+                    dst[k:].zero_()
+            self._copied = torch.cuda.Event()
+            self._copied.record(self._side)
+        if tracing.enabled():
+            # the host rows copied: each column's data and validity
+            tracing.count("dftpu.h2d.bytes", sum(a[lo:hi].nbytes for a in self._arrays))
+
+    def _receive(self, buf: torch.Tensor) -> int:
+        """Copy the next morsel from the staging buffer into ``buf`` on the
+        caller's stream and issue the copies of the one after; the
+        morsel's row count."""
+        main = torch.cuda.current_stream(self.device)
+        main.wait_event(self._copied)
+        buf.copy_(self._staging)
+        self._received = torch.cuda.Event()
+        self._received.record(main)
+        i = self.i
+        self.i += 1
+        if self.i < self.host.num_morsels:
+            self._issue(self.i)
+        return self._rows[i]
+
+    def _views(self, buf: torch.Tensor) -> list:
+        """Each column's data and validity inside a flat buffer."""
+        return [buf[off:off + n].view(dt).view(shape) for off, n, dt, shape in self._layout]
+
+    def _table(self, buf: torch.Tensor, nrows) -> Table:
+        v = self._views(buf)
+        h = self.host
+        cols = [Column(dt, v[2 * j], v[2 * j + 1], dic) for j, (dt, dic) in enumerate(zip(h.dtypes, h.dicts))]
+        return Table(h.names, cols, nrows, device=self.device)
 
 
 class HostMemoryExec(MemoryExec):

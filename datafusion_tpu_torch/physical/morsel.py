@@ -27,6 +27,11 @@ ratchet=True)``); inside a collect's speculation window later morsels
 truncate to it and record an overflow flag, and an overflow reruns the
 query exactly, which learns the largest morsel's capacity.  The small
 domain's partial states have a static capacity and never overflow.
+
+So on the card a warm loop's per-morsel work is the same launches every
+morsel, and it runs as one CUDA graph: captured on the loop's second
+morsel and replayed for the rest (``_stream``), the host issuing one
+replay per morsel where it issued a few hundred launches.
 """
 
 from __future__ import annotations
@@ -48,6 +53,7 @@ from ..ops.basic import GlobalLimitExec, MemoryExec, concat_tables
 from ..ops.join import SHRINK_SYNC_MIN_CAP, HashJoinExec
 from ..ops.sort import SortExec
 from ..types.dtypes import INT64
+from . import query_compiler as QC
 from .stage_compiler import CompiledStage
 
 
@@ -113,6 +119,7 @@ class MorselStageExec(ExecutionPlan):
         per, self._distinct_values = _attach_partial_agg(self.agg, per)
         self.per_morsel_plan = per
         self.stage = CompiledStage(per, source_node=swap)
+        _init_capture_state(self)
 
     def schema(self):
         return self.full_chain[0].schema()
@@ -131,19 +138,89 @@ class MorselStageExec(ExecutionPlan):
         )
 
     def _execute(self) -> Table:
-        # each morsel's span takes in the copies the stream issues for
-        # the next one
-        morsels = self.host.stream_morsels()
-        outs = []
-        for _ in range(self.host.num_morsels):
-            with tracing.span("dftpu.morsel"):
-                outs.append(self.stage.execute(src=next(morsels), ratchet=True))
+        outs = _stream(self, lambda m: self.stage.execute(src=m, ratchet=True))
         self.metrics.counter("morsels").add(len(outs))
         with tracing.span("dftpu.morsel.merge"):
             return _merge_and_finish(
                 outs, self.per_morsel_plan.schema(), self.agg, self._distinct_values,
                 self.above, owner=self,
             )
+
+
+# failed captures after which a morsel node stops trying (``_stream``)
+MAX_CAPTURE_FAILURES = 3
+
+
+def _stream(owner, body) -> list[Table]:
+    """``body(morsel)`` for every morsel of ``owner.host``, in order: the
+    morsels' outputs.
+
+    On the card, in a speculation window, over at least 3 morsels, and
+    once ``owner`` has run its loop before (so every capacity the body
+    sizes from is learned), the morsels' work becomes one CUDA graph.  The
+    first morsel runs node by node, which also fills the memos the body
+    reads (a join's prepared build side, device tables); the second is
+    captured over the loop's static morsel buffer (``PieceGraph``); the
+    graph is replayed for it and every later morsel, the short last one
+    included (its row count is a device value).  Their overflow flags
+    reach the window once, summed.  A capture that fails leaves the rest
+    of the loop node by node; ``owner`` counts it and stops trying after
+    ``MAX_CAPTURE_FAILURES``.  Elsewhere every morsel runs node by node.
+    Each morsel's span takes in the copies issued for the next one."""
+    host = owner.host
+    n = host.num_morsels
+    morsels = host.stream_morsels()
+    capture = (
+        host.device.type == "cuda" and n >= 3 and K.spec_active() and owner.streamed
+        and owner.capture_failures < MAX_CAPTURE_FAILURES
+    )
+    outs, graph = [], None
+    for i in range(n):
+        with tracing.span("dftpu.morsel"):
+            src = None
+            if capture and i > 0:
+                capture = False
+                graph = _capture(owner, body, morsels.next_static())
+                if graph is None:
+                    src = morsels.copy_static()
+            elif graph is not None and graph.graph is not None:
+                morsels.next_static()
+            else:
+                src = next(morsels)
+            if src is None:
+                outs.append(graph.replay())
+                tracing.count("dftpu.morsel.replayed")
+            else:
+                outs.append(body(src))
+                tracing.count("dftpu.morsel.eager")
+    owner.streamed = True
+    if graph is not None:
+        graph.invalidate()
+        if graph.flags is not None:
+            K.spec_record(graph.flags)
+    return outs
+
+
+def _capture(owner, body, src: Table):
+    """The graph of ``body(src)``, or None when the capture fails (a host
+    read, an operation torch refuses inside a capture, any other error):
+    the loop goes on node by node, which raises whatever is really wrong.
+    ``owner`` keeps the failure (``capture_failure``) and counts it."""
+    with tracing.span("dftpu.morsel.capture"):
+        try:
+            return QC.PieceGraph(src.device, lambda: body(src))
+        except Exception as e:  # the loop must go on node by node
+            owner.capture_failure = f"{type(e).__name__}: {e}{QC._where(e)}"
+        owner.capture_failures += 1
+        return None
+
+
+def _init_capture_state(node) -> None:
+    """A morsel node's state for ``_stream``: whether its loop has run
+    (``streamed``), and its failed captures, the last one's message kept."""
+    node.streamed = False
+    node.capture_failures = 0
+    node.capture_failure = None
 
 
 def _attach_partial_agg(agg, per):
@@ -252,6 +329,7 @@ class MorselJoinStageExec(ExecutionPlan):
         per, self._distinct_values = _attach_partial_agg(self.agg, node)
         self._per_schema = per.schema()
         self._per_stage = CompiledStage(per, source_node=swap2) if per is not swap2 else None
+        _init_capture_state(self)
 
     def schema(self):
         return (self.full_chain[0] if self.full_chain else self.join).schema()
@@ -317,31 +395,37 @@ class MorselJoinStageExec(ExecutionPlan):
         jschema = self.join.schema()
         join_node, dev_tbl, rowid_idx = self._per_join(self.build.execute())
         probe = self._probe
-        visited = out_dics = None
-        outs: list[Table] = []
-        morsels = self.host.stream_morsels()
-        for _ in range(self.host.num_morsels):
-            with tracing.span("dftpu.morsel"):
-                cur = next(morsels)
-                if self._host_stage is not None:
-                    cur = self._host_stage.execute(src=cur, ratchet=True)
-                probe.table = cur
-                jt_out = join_node.execute()
-                if rowid_idx is not None:
-                    rid = jt_out.columns[rowid_idx]
-                    live = torch.arange(jt_out.capacity, device=rid.data.device) < jt_out.nrows_dev
-                    rcap = dev_tbl.capacity
-                    # the device rows this morsel matched (slot rcap: no match)
-                    idx = torch.where(rid.valid & live, rid.data, rcap)
-                    upd = torch.zeros(rcap + 1, dtype=torch.bool, device=idx.device).index_fill_(0, idx, True)
-                    visited = upd[:rcap] if visited is None else visited | upd[:rcap]
-                    keep = [j for j in range(len(jt_out.columns)) if j != rowid_idx]
-                    if out_dics is None:
-                        out_dics = [jt_out.columns[j].dictionary for j in keep]
-                    jt_out = Table([jt_out.names[j] for j in keep], [jt_out.columns[j] for j in keep],
-                                   jt_out.nrows_dev, device=jt_out.device)
-                outs.append(self._per_morsel(jt_out))
-        probe.table = None
+        rcap = dev_tbl.capacity
+        # the device rows some morsel matched, updated in place (a graph
+        # replays the update)
+        visited = None
+        if rowid_idx is not None:
+            visited = torch.zeros(rcap, dtype=torch.bool, device=dev_tbl.device)
+        out_dics: list = []
+
+        def body(cur: Table) -> Table:
+            if self._host_stage is not None:
+                cur = self._host_stage.execute(src=cur, ratchet=True)
+            probe.table = cur
+            jt_out = join_node.execute()
+            if rowid_idx is not None:
+                rid = jt_out.columns[rowid_idx]
+                live = torch.arange(jt_out.capacity, device=rid.data.device) < jt_out.nrows_dev
+                # the device rows this morsel matched (slot rcap: no match)
+                idx = torch.where(rid.valid & live, rid.data, rcap)
+                upd = torch.zeros(rcap + 1, dtype=torch.bool, device=idx.device).index_fill_(0, idx, True)
+                visited.logical_or_(upd[:rcap])
+                keep = [j for j in range(len(jt_out.columns)) if j != rowid_idx]
+                if not out_dics:
+                    out_dics.extend(jt_out.columns[j].dictionary for j in keep)
+                jt_out = Table([jt_out.names[j] for j in keep], [jt_out.columns[j] for j in keep],
+                               jt_out.nrows_dev, device=jt_out.device)
+            return self._per_morsel(jt_out)
+
+        try:
+            outs = _stream(self, body)
+        finally:
+            probe.table = None
         self.metrics.counter("morsels").add(len(outs))
         with tracing.span("dftpu.morsel.merge"):
             if rowid_idx is not None:

@@ -45,7 +45,8 @@ keys on the catalog version, so a plan's tables live as long as its
 graph, and the context releases the graphs of its cached plans when the
 catalog changes (``release``).  When the card runs out of memory the
 context releases every graph and the pool (``release_graphs``) and runs
-the query again.
+the query again.  A morsel loop's graph of one morsel's work
+(``PieceGraph``, ``physical/morsel.py``) follows the same rules.
 """
 
 from __future__ import annotations
@@ -68,8 +69,14 @@ from ..errors import HostReadInWholeQuery
 _POOLS: dict = {}
 _STREAMS: dict = {}
 _LOCK = threading.Lock()
-# the plans' states that hold a graph, for ``release_graphs``
-_HOLDING: "weakref.WeakSet[WholeQuery]" = weakref.WeakSet()
+# what holds a graph (a plan's state, a morsel loop's ``PieceGraph``), for
+# ``release_graphs``
+_HOLDING: weakref.WeakSet = weakref.WeakSet()
+# per device: the last morsel loop's graph, kept until the next one is
+# captured.  torch's pinned-memory allocator counts each pool's graphs too
+# and refuses a capture into a pool whose graphs are all gone: so a pool
+# is used again only while a graph keeps it (``_forget_pool``)
+_RETAINED: dict = {}
 
 
 def _pool(device: torch.device):
@@ -86,9 +93,10 @@ def _stream(device: torch.device) -> torch.cuda.Stream:
 
 
 def _forget_pool(device) -> None:
-    """Once no graph on ``device`` is held, drop its pool: the allocator
-    can then hand its memory back."""
-    if device is not None and not any(wq.device == device for wq in _HOLDING):
+    """Once no graph on ``device`` is held or retained, drop its pool: the
+    allocator can then hand its memory back, and no capture goes into a
+    pool that no graph keeps."""
+    if device is not None and device not in _RETAINED and not any(wq.device == device for wq in _HOLDING):
         _POOLS.pop(device, None)
 
 
@@ -107,15 +115,125 @@ def pool_bytes(device) -> int:
 
 
 def release_graphs() -> bool:
-    """Drop every plan's graph, and with the last one the pools, returning
-    their memory to the card; the plans check and capture again on later
-    collects.  Returns whether there was anything to drop."""
+    """Drop every graph held (the plans' and a morsel loop's), and the
+    pools, returning their memory to the card; the plans check and capture
+    again on later collects.  Returns whether there was anything to drop."""
     held = list(_HOLDING)
     for wq in held:
         wq.invalidate()
-    if held:
+    # a morsel loop's graph leaves its memory in the pool for the next loop
+    pooled = bool(_POOLS)
+    _RETAINED.clear()
+    _POOLS.clear()
+    if held or pooled:
         torch.cuda.empty_cache()
-    return bool(held)
+    return bool(held or pooled)
+
+
+def capture(device, run, into: torch.Tensor | None = None):
+    """``run()`` captured into a new CUDA graph on ``device``'s graph
+    stream, from the shared pool, with every host read and fresh
+    host-to-device copy refused (``BUILD``) and torch's synchronization
+    check set to raise.  Returns (graph, what ``run`` returned, the int32
+    sum of the overflow flags it recorded, or None); with ``into`` the
+    graph also adds that sum to ``into``.  Call under ``_LOCK``.  Raises
+    what ``run`` raises, and torch's refusal of an operation, the capture
+    then abandoned."""
+    from ..ops import kernels as K
+
+    flags = K.SPECULATION.flags
+    snap = len(flags)
+    graph = torch.cuda.CUDAGraph()
+    main = torch.cuda.current_stream(device)
+    side = _stream(device)
+    side.wait_stream(main)
+    mode = torch.cuda.get_sync_debug_mode()
+    BUILD.active = BUILD.strict = True
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        with torch.cuda.stream(side):
+            graph.capture_begin(pool=_pool(device).id, capture_error_mode="thread_local")
+            try:
+                out = run()
+                flag = None
+                for f in flags[snap:]:
+                    f = f.to(torch.int32)
+                    flag = f if flag is None else flag + f
+                if into is not None and flag is not None:
+                    into += flag
+            finally:
+                del flags[snap:]
+                graph.capture_end()
+    finally:
+        BUILD.active = BUILD.strict = False
+        torch.cuda.set_sync_debug_mode(mode)
+        main.wait_stream(side)
+    return graph, out, flag
+
+
+def replay(graph, out: Table, flag, device) -> Table:
+    """Replay ``graph`` and copy its output table ``out`` out of the pool,
+    before any other graph's replay can overwrite it (module docstring);
+    a copy of ``flag``, when given, is recorded in the speculation
+    window."""
+    from ..ops import kernels as K
+
+    main = torch.cuda.current_stream(device)
+    side = _stream(device)
+    with _LOCK:
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            graph.replay()
+            cols = [
+                Column(c.dtype, c.data.clone(), c.valid.clone(), c.dictionary, vrange=c.vrange)
+                for c in out.columns
+            ]
+            n = out.nrows_dev
+            n = n if isinstance(n, int) else n.clone()
+            flag = None if flag is None else flag.clone()
+        main.wait_stream(side)
+    for t in [*(c.data for c in cols), *(c.valid for c in cols), n, flag]:
+        if isinstance(t, torch.Tensor):
+            # made on the side stream, read on the caller's
+            t.record_stream(main)
+    if flag is not None:
+        K.spec_record(flag)
+    t = Table(list(out.names), cols, n, device=out.device)
+    t._cap_learned = True
+    return t
+
+
+class PieceGraph:
+    """A CUDA graph of one piece of a plan's work that its caller captures
+    and replays itself (a morsel's stage: ``physical/morsel.py``), under
+    the whole-query graphs' rules: their stream, pool and lock.  The
+    overflow flags its capture records are summed into ``flags`` at each
+    replay (None when it records none), which the caller records once.
+    Held, so ``release_graphs`` can drop it, from its capture until
+    ``invalidate``."""
+
+    def __init__(self, device, run):
+        """Capture ``run()`` (``capture``; raises what it raises)."""
+        self.device = device
+        acc = torch.zeros((), dtype=torch.int32, device=device)
+        with _LOCK:
+            try:
+                self.graph, self._out, flag = capture(device, run, into=acc)
+            except BaseException:
+                _forget_pool(device)
+                raise
+            _RETAINED[device] = self.graph
+        self.flags = None if flag is None else acc
+        _HOLDING.add(self)
+
+    def replay(self) -> Table:
+        return replay(self.graph, self._out, None, self.device)
+
+    def invalidate(self):
+        """Drop the graph (``_RETAINED`` may keep it until the next
+        capture); its memory stays in the pool."""
+        self.graph = self._out = None
+        _HOLDING.discard(self)
 
 
 def _discover_leaves(plan, out, seen):
@@ -289,34 +407,12 @@ class WholeQuery:
     @tracing.spanned("dftpu.collect.capture")
     def _capture(self) -> bool:
         from ..exprs.physical import device_tables
-        from ..ops import kernels as K
 
         device = self.device
-        flags = K.SPECULATION.flags
-        snap = len(flags)
-        graph = torch.cuda.CUDAGraph()
-        main = torch.cuda.current_stream(device)
-        side = _stream(device)
         with _LOCK:
             torch.cuda.synchronize(device)
             reserved = torch.cuda.memory_reserved(device)
-            side.wait_stream(main)
-            BUILD.active = BUILD.strict = True
-            try:
-                with torch.cuda.stream(side):
-                    graph.capture_begin(pool=_pool(device).id, capture_error_mode="thread_local")
-                    try:
-                        out = self._phys().execute()
-                        flag = None
-                        for f in flags[snap:]:
-                            f = f.to(torch.int32)
-                            flag = f if flag is None else flag + f
-                    finally:
-                        del flags[snap:]
-                        graph.capture_end()
-            finally:
-                BUILD.active = BUILD.strict = False
-                main.wait_stream(side)
+            graph, out, flag = capture(device, lambda: self._phys().execute())
             torch.cuda.synchronize(device)
             self.pool_growth = torch.cuda.memory_reserved(device) - reserved
         self.graph = graph
@@ -329,34 +425,8 @@ class WholeQuery:
         return True
 
     def _replay(self) -> Table:
-        from ..ops import kernels as K
-
         out, flag = self._out
-        main = torch.cuda.current_stream(self.device)
-        side = _stream(self.device)
-        with _LOCK:
-            # the outputs are copied before any other graph's replay can
-            # overwrite the shared pool (module docstring)
-            side.wait_stream(main)
-            with torch.cuda.stream(side):
-                self.graph.replay()
-                cols = [
-                    Column(c.dtype, c.data.clone(), c.valid.clone(), c.dictionary, vrange=c.vrange)
-                    for c in out.columns
-                ]
-                n = out.nrows_dev
-                n = n if isinstance(n, int) else n.clone()
-                flag = None if flag is None else flag.clone()
-            main.wait_stream(side)
-        for t in [*(c.data for c in cols), *(c.valid for c in cols), n, flag]:
-            if isinstance(t, torch.Tensor):
-                # made on the side stream, read on the caller's
-                t.record_stream(main)
-        if flag is not None:
-            K.spec_record(flag)
-        t = Table(list(out.names), cols, n, device=out.device)
-        t._cap_learned = True
-        return t
+        return replay(self.graph, out, flag, self.device)
 
 
 def _enabled() -> bool:

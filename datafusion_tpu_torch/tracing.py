@@ -24,6 +24,8 @@ A request is one query: ``ExecutionContext.sql`` assigns it, the
   dftpu.sync           a host read of a device value (each ``HOST_SYNCS``
                        increment, ``columnar/table.py``)
   dftpu.morsel         one morsel of a morsel stage
+  dftpu.morsel.capture  the capture of a morsel's work into a CUDA graph,
+                       inside a dftpu.morsel (``physical/morsel.py``)
   dftpu.morsel.merge   a morsel stage's merge and finish
   dftpu.decode         Table.to_pydict; per column .copy (device to host)
                        and .convert (numpy to Python values)
@@ -33,7 +35,10 @@ as one unit, ``dftpu.collect.eager`` when it ran node by node, and
 ``dftpu.collect.rerun`` when an overflow reran it exactly; a capture's
 ``dftpu.graph.captures`` (one per graph captured) and
 ``dftpu.graph.pool_bytes`` (the bytes the graphs' shared pool grew by in
-it); and ``dftpu.h2d.bytes``, the host rows copied to the device.  The
+it); the morsels a morsel loop ran by a graph's replay,
+``dftpu.morsel.replayed``, and node by node, ``dftpu.morsel.eager`` (the
+first's share of their sum is the graphs' hit rate); and
+``dftpu.h2d.bytes``, the host rows copied to the device.  The
 decode counts ``dftpu.decode.exact``: the result columns converted value
 by value, their values being outside the whole-column conversions'
 ranges (``columnar/column.py``).  No span or counter reads a device

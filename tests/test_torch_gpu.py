@@ -12,8 +12,9 @@ shapes and at edge cases (exact equality), among them every case of
 against the same queries on the CPU; and that on the card Q1 and the
 small-domain GROUP BY launched K1, and the sort-path queries did not;
 that a host table's pinned, side-stream morsel copies equal synchronous
-uploads, that a warm morsel loop makes no host sync and launches K1 once
-per morsel, that the native CSV/TBL loader is built and used, and that
+uploads, that a warm morsel loop makes no host sync and runs K1 once per
+morsel (launched, or in a graph's replay: tests/test_torch_morsel_graph.py
+tests those graphs), that the native CSV/TBL loader is built and used, and that
 the mesh places its shards on the cards and runs Q1 over 8 shards without
 K1; that a standalone distributed cluster on the card gives the single
 device's Q1 rows and launches K1 once per scan task, and that a spill
@@ -648,7 +649,9 @@ def test_pinned_streamed_morsels_equal_synchronous_uploads(cuda):
 def test_no_host_sync_between_morsels_of_an_aggregate_stage(cuda):
     """A warm collect of Q1 over a host table reads nothing on the host
     while its morsels run: torch's sync check set to raise stays quiet
-    from the first morsel to the last, and K1 runs once per morsel."""
+    from the first morsel to the merge, and K1 runs once per morsel (the
+    first morsel's launch, the rest in the graph's replays)."""
+    from datafusion_tpu_torch import tracing
     from datafusion_tpu_torch.columnar.table import HOST_SYNCS
     from datafusion_tpu_torch.physical import morsel as M
 
@@ -665,32 +668,30 @@ def test_no_host_sync_between_morsels_of_an_aggregate_stage(cuda):
     orig = M.MorselStageExec._execute
 
     def guarded(self):
-        gen = self.host.stream_morsels
         syncs0 = HOST_SYNCS[0]
-
-        def watched():
-            torch.cuda.set_sync_debug_mode("error")
-            try:
-                for m in gen():
-                    yield m
-            finally:
-                torch.cuda.set_sync_debug_mode("default")
-            seen.append(HOST_SYNCS[0] - syncs0)
-
-        self.host.stream_morsels = watched
+        torch.cuda.set_sync_debug_mode("error")
         try:
             return orig(self)
         finally:
-            del self.host.stream_morsels
+            torch.cuda.set_sync_debug_mode("default")
+            seen.append(HOST_SYNCS[0] - syncs0)
 
     M.MorselStageExec._execute = guarded
+    tracing.drain()
+    tracing.enable()
     try:
         before = SD.smalldomain_sum_count.launches
         got = ctx.sql(q1).collect().to_pydict()
         launches = SD.smalldomain_sum_count.launches - before
     finally:
         M.MorselStageExec._execute = orig
-    assert got == want and seen == [0] and launches == host.num_morsels
+        tracing.disable()
+    c = {}
+    for (_, name), n in tracing.drain().counters.items():
+        c[name] = c.get(name, 0) + n
+    assert got == want and seen == [0]
+    assert launches == c["dftpu.morsel.eager"] == 1
+    assert launches + c["dftpu.morsel.replayed"] == host.num_morsels >= 3
 
 
 @pytest.mark.gpu

@@ -20,6 +20,7 @@ import datafusion_tpu as J
 from datafusion_tpu.columnar.table import Table as JTable
 from bench.q1data import generate_lineitem_q1 as jax_lineitem
 import datafusion_tpu_torch as D
+from datafusion_tpu_torch import tracing
 from datafusion_tpu_torch.datasource.host import HostTable
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.physical.morsel import MorselJoinStageExec, MorselStageExec
@@ -208,17 +209,38 @@ def test_string_min_max_through_morsels_f15():
 
 def test_morsel_plans_are_dead_for_capture_and_int_keys_take_the_sort_path(single, monkeypatch):
     """A morsel plan is never checked nor captured (it is dead from its
-    first collect, no failed attempt).  An integer GROUP BY key over
-    morsels takes the sort path, as in the JAX package, whose morsel
+    first collect, no failed attempt), and on the CPU its morsel loop
+    captures no graph of a morsel either: every morsel runs node by node
+    (``dftpu.morsel.eager``), none by a replay.  An integer GROUP BY key
+    over morsels takes the sort path, as in the JAX package, whose morsel
     stages probe no key ranges; device-resident, the probe sends it to K1."""
     _, pctx, dctx = single
     calls = []
     plain = SD.smalldomain_sum_count_plain
     monkeypatch.setattr(SD, "smalldomain_sum_count_plain", lambda *a: (calls.append(1), plain(*a))[1])
     q = "SELECT k, sum(q) s FROM t GROUP BY k ORDER BY k"
-    for _ in range(3):
-        got = pctx.sql(q).collect().to_pydict()
-    wq = pctx._plan_cache[list(pctx._plan_cache)[-1]]._whole_query
+    tracing.drain()
+    tracing.enable()
+    try:
+        for _ in range(3):
+            got = pctx.sql(q).collect().to_pydict()
+    finally:
+        tracing.disable()
+    counts = {}
+    for (_, name), n in tracing.drain().counters.items():
+        counts[name] = counts.get(name, 0) + n
+    phys = pctx._plan_cache[list(pctx._plan_cache)[-1]]
+    wq = phys._whole_query
     assert wq._dead and wq.failure is None and not wq.checked
+    stage = next(n for n in _nodes(phys) if isinstance(n, MorselStageExec))
+    assert stage.streamed and stage.capture_failures == 0
+    assert counts.get("dftpu.morsel.replayed", 0) == 0
+    assert counts["dftpu.morsel.eager"] == 3 * stage.host.num_morsels == 15
     assert calls == []
     assert dctx.sql(q).collect().to_pydict() == got and len(calls) == 1
+
+
+def _nodes(plan):
+    yield plan
+    for c in plan.children():
+        yield from _nodes(c)

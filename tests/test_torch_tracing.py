@@ -206,7 +206,7 @@ class _FakeGraphs:
                             ("stream", lambda _: contextlib.nullcontext()),
                             ("device", lambda _: contextlib.nullcontext()),
                             ("synchronize", lambda *_: None), ("empty_cache", lambda: None),
-                            ("set_sync_debug_mode", lambda _: None),
+                            ("set_sync_debug_mode", lambda _: None), ("get_sync_debug_mode", lambda: 0),
                             ("memory_reserved", lambda *_: fake.reserved)]:
             monkeypatch.setattr(cuda, name, value)
         monkeypatch.setattr(torch.Tensor, "record_stream", lambda self, _: None)
@@ -299,6 +299,27 @@ def test_h2d_bytes_of_a_morsel_join():
     i = host.names.index("k")
     assert c["dftpu.h2d.bytes"] == host.datas[i].nbytes + host.valids[i].nbytes
     assert [s.name for s in rec.spans].count("dftpu.morsel") == host.num_morsels
+
+
+@pytest.mark.parametrize("sql", ["SELECT sum(v) AS s FROM t WHERE v > 10",
+                                 "SELECT sum(y) AS sy FROM t JOIN d ON t.k = d.k"])
+def test_morsel_counters_only_while_on(sql):
+    """A morsel loop counts each morsel as run node by node
+    (``dftpu.morsel.eager``) or by a graph's replay (``.replayed``), only
+    while the tracer is on; on the CPU every morsel runs node by node and
+    no capture's span opens."""
+    ctx = _ctx(host=True)
+    host = ctx._resolve_table("t").host
+    want = _query(ctx, sql)
+    assert _query(ctx, sql) == want
+    assert tracing.drain() == tracing.Records([], {})
+    tracing.enable()
+    assert _query(ctx, sql) == want
+    rec = tracing.drain()
+    c = _counts(rec)
+    assert c["dftpu.morsel.eager"] == host.num_morsels == 5
+    assert "dftpu.morsel.replayed" not in c
+    assert "dftpu.morsel.capture" not in {s.name for s in rec.spans}
 
 
 def test_decode_spans_once_per_column():
