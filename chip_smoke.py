@@ -213,6 +213,7 @@ from datafusion_tpu_torch.datasource.host import HostTable
 from datafusion_tpu_torch.distributed import DistributedContext, TableStore, serde, shuffle_io
 from datafusion_tpu_torch.distributed import exchange as X
 from datafusion_tpu_torch.distributed.rpc import RpcSchedulerClient
+from datafusion_tpu_torch.ops import aggregate
 from datafusion_tpu_torch.ops import kernels as K
 from datafusion_tpu_torch.ops import smalldomain as SD
 from datafusion_tpu_torch.ops.join import HashJoinExec
@@ -221,7 +222,6 @@ from datafusion_tpu_torch.parallel.collectives import EXCHANGE_RANGE
 from datafusion_tpu_torch.parallel.executor import SpmdExecutor
 from datafusion_tpu_torch.parallel.mesh import make_mesh
 from datafusion_tpu_torch.physical import query_compiler as QC
-from datafusion_tpu_torch.physical import stage_compiler
 from datafusion_tpu_torch.q1data import (
     LINESTATUSES,
     RETURNFLAGS,
@@ -551,8 +551,8 @@ def phase_main(sql: str, name_power: str):
     log(f"[main] lineitem SF{SF}: {table.nrows} rows, capacity {table.capacity}, "
         f"set-up {time.perf_counter() - t0:.3f} s")
     want = q1_oracle(lineitem_q1_arrays(SF, SEED))
-    rec = Recorder(stage_compiler.smalldomain_sum_count)
-    stage_compiler.smalldomain_sum_count = rec
+    rec = Recorder(aggregate.smalldomain_sum_count)
+    aggregate.smalldomain_sum_count = rec
     times, rows, per_run = [], [], []
     try:
         SD.smalldomain_sum_count.launches = 0
@@ -568,7 +568,7 @@ def phase_main(sql: str, name_power: str):
         rows.append(got)
         launches = SD.smalldomain_sum_count.launches + prof["k1_launches"]
     finally:
-        stage_compiler.smalldomain_sum_count = rec.fn
+        aggregate.smalldomain_sum_count = rec.fn
     for got in rows:
         check_q1(got, want)
     wq = whole_query(ctx)
@@ -900,8 +900,8 @@ def phase_sql(name_power: str):
     launches, err, checked = {}, 0, []
     for name in NAMED_QUERIES:
         sql = get_named_query(name)
-        rec = Recorder(stage_compiler.smalldomain_sum_count)
-        stage_compiler.smalldomain_sum_count = rec
+        rec = Recorder(aggregate.smalldomain_sum_count)
+        aggregate.smalldomain_sum_count = rec
         per_run, rows, secs, calls = [], [], [], []
         try:
             SD.smalldomain_sum_count.launches = 0
@@ -914,7 +914,7 @@ def phase_sql(name_power: str):
                 calls.append(rec.calls[ncalls:])
             launches[name] = SD.smalldomain_sum_count.launches
         finally:
-            stage_compiler.smalldomain_sum_count = rec.fn
+            aggregate.smalldomain_sum_count = rec.fn
         for got in rows:
             check_rows(name, got, want[name], SQL_FLOAT_COLS)
         wq = whole_query(ctx)
@@ -1163,8 +1163,8 @@ TPCH_ORACLE_ORDER = {3: [(1, True), (2, False)], 12: [(0, False)], 18: [(4, True
 def run_recorded(ctx, q: int):
     """One run of query q with every K1 call recorded and K1's launch count
     read around it: (rows, launches, recorder, seconds)."""
-    rec = Recorder(stage_compiler.smalldomain_sum_count)
-    stage_compiler.smalldomain_sum_count = rec
+    rec = Recorder(aggregate.smalldomain_sum_count)
+    aggregate.smalldomain_sum_count = rec
     try:
         SD.smalldomain_sum_count.launches = 0
         t0 = time.perf_counter()
@@ -1172,7 +1172,7 @@ def run_recorded(ctx, q: int):
         secs = time.perf_counter() - t0
         launches = SD.smalldomain_sum_count.launches
     finally:
-        stage_compiler.smalldomain_sum_count = rec.fn
+        aggregate.smalldomain_sum_count = rec.fn
     if launches and not rec.calls:
         raise AssertionError(f"Q{q}: K1 launched outside the stage compiler's call")
     return got, launches, rec, secs
@@ -1964,8 +1964,8 @@ def phase_morsel(name_power: str) -> tuple:
         f"generated in {gen_s:.3f} s, numpy oracle {oracle_s:.3f} s, pinned once in "
         f"{host.pin_seconds:.3f} s")
 
-    rec = EndsRecorder(stage_compiler.smalldomain_sum_count)
-    stage_compiler.smalldomain_sum_count = rec
+    rec = EndsRecorder(aggregate.smalldomain_sum_count)
+    aggregate.smalldomain_sum_count = rec
     runs = []
     try:
         # the cold collect launches K1 for every morsel; the warm one for
@@ -1990,7 +1990,7 @@ def phase_morsel(name_power: str) -> tuple:
             if label == "cold":
                 first, last = rec.calls[0], rec.calls[-1]
     finally:
-        stage_compiler.smalldomain_sum_count = rec.fn
+        aggregate.smalldomain_sum_count = rec.fn
     streamed, materialized = host_scans(last_plan(hctx))
     if len(streamed) != 1 or materialized:
         raise AssertionError(f"Q1 SF{MORSEL_SF:g}: the plan does not stream ({streamed}, {materialized})")
@@ -2372,12 +2372,12 @@ def dist_standalone(name_power: str, tables: dict, single: dict, q1_want: dict, 
             label = f"Q{q} SF{SF:g} distributed"
             base_mb = torch.cuda.memory_allocated() / 2**20
             torch.cuda.reset_peak_memory_stats()
-            rec = Recorder(stage_compiler.smalldomain_sum_count)
-            stage_compiler.smalldomain_sum_count = rec
+            rec = Recorder(aggregate.smalldomain_sum_count)
+            aggregate.smalldomain_sum_count = rec
             try:
                 cold = dist_run(dctx, q)
             finally:
-                stage_compiler.smalldomain_sum_count = rec.fn
+                aggregate.smalldomain_sum_count = rec.fn
             dist_check(f"{label} cold vs single-device", cold, q, want, q1_want, exp,
                        f"distributed x{DIST_PARTITIONS}")
             launches[f"distributed-q{q}"] = cold["k1"]
@@ -2724,8 +2724,8 @@ def sf10_host(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) -> t
     err, checked, launches = 0, [], {}
     for q in SF10_QUERIES:
         label = f"Q{q} SF{SF10:g} host-resident"
-        rec = EndsRecorder(stage_compiler.smalldomain_sum_count)
-        stage_compiler.smalldomain_sum_count = rec
+        rec = EndsRecorder(aggregate.smalldomain_sum_count)
+        aggregate.smalldomain_sum_count = rec
         try:
             SD.smalldomain_sum_count.launches = 0
             t0 = time.perf_counter()
@@ -2733,7 +2733,7 @@ def sf10_host(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) -> t
             cold = (time.perf_counter() - t0) * 1e3
             k1 = SD.smalldomain_sum_count.launches
         finally:
-            stage_compiler.smalldomain_sum_count = rec.fn
+            aggregate.smalldomain_sum_count = rec.fn
         exp.check("host-resident cold", q, got)
         plan = last_plan(ctx)
         scans = expected.host_scans(plan)

@@ -36,7 +36,7 @@ from ..device import torch_dtype
 from ..errors import PlanError
 from ..types import Field, Schema
 from . import kernels as K
-from .aggregate import PhysAggExpr, _group_rows, _to_float
+from .aggregate import PhysAggExpr, group_rows, to_float
 from .base import ExecutionPlan
 
 
@@ -112,7 +112,7 @@ class RollingWindowAggExec(ExecutionPlan):
 
         pcols = [e.evaluate(t) for e, _ in self.partition_by]
         if pcols:
-            perm, nparts_dev, seg, kvalids, _ = _group_rows(pcols, alive)
+            perm, nparts_dev, seg, kvalids, _ = group_rows(pcols, alive)
             nparts = K.learned_count(nparts_dev, self._learned, cap)
             pid = seg.gid
         else:
@@ -158,7 +158,7 @@ class RollingWindowAggExec(ExecutionPlan):
             return c, c
         v = a.expr.evaluate(t)
         if as_float:
-            x = torch.where(v.valid, _to_float(v.data, v.dtype), 0.0)
+            x = torch.where(v.valid, to_float(v.data, v.dtype), 0.0)
         else:
             sdt = torch_dtype(a.return_type().storage_np_dtype())
             x = K.signed_view(v.data.to(sdt))

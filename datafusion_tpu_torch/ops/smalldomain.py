@@ -3,7 +3,7 @@
 ``smalldomain_sum_count`` replaces the TPU kernel
 ``datafusion_tpu/ops/pallas_kernels.py::smalldomain_sum_count`` (the one
 ``pl.pallas_call`` of the reference, :132-181), which the fused
-small-domain GROUP BY (``physical/stage_compiler.py``) uses for every
+small-domain GROUP BY (``ops/aggregate.py``) uses for every
 sum, count and avg over integer or decimal storage: one pass over the rows
 for all aggregates instead of one masked [domain, N] reduction each.
 

@@ -32,7 +32,7 @@ from ..columnar.table import Table
 from ..errors import InternalError
 from ..types import Schema
 from . import kernels as K
-from .aggregate import HashAggregateExec, _eval_aggregate
+from .aggregate import HashAggregateExec, output_columns, segment_aggregate
 from .base import ExecutionPlan
 from .basic import concat_tables
 from .sort import PhysSortExpr, sort_table
@@ -178,19 +178,14 @@ class SortedAggregateExec(ExecutionPlan):
         gid = torch.where(alive, torch.cumsum(boundary, 0) - 1, cap - 1)
         seg = K.segments(gid)
         gv = ar < ngroups
-        names = [n for _, n in self.group_expr]
         out_cols = [
             Column(kc.dtype, K.gather(kc.data, seg.first), kc.valid[seg.first] & gv, kc.dictionary)
             for kc in key_cols
         ]
-        partial = self.mode == "partial"
         for a in self.aggr_expr:
-            cols = _eval_aggregate(a, t, None, seg, cap, alive, ngroups, emit_state=partial)
-            if partial:
-                names += [sn for sn, _ in a.state_fields()]
-            else:
-                names.append(a.name)
-            out_cols += cols
+            out_cols += segment_aggregate(a, t, None, seg, cap, alive, ngroups,
+                                          emit_state=self.mode == "partial")
+        names, _, _ = output_columns(self, t, key_cols)
         out = Table(names, out_cols, ngroups, device=dev)
         sig = (cap, tuple(str(c.dtype) for c in t.columns))
         return K.fit_learned(out, self._learned, sig)

@@ -460,7 +460,7 @@ def _range_minmax(x, lo, hi, opfn, neutral, span):
 def _window_aggregate_range(f, v, dtype, p, lo, hi, span):
     """A frame-aware window aggregate over per-row row ranges [lo, hi]
     (AggregateWindowExpr, windows/aggregate.rs:36, with real frames)."""
-    from .aggregate import _to_float
+    from .aggregate import to_float
 
     alive = p.alive
     if f == "count":
@@ -477,7 +477,7 @@ def _window_aggregate_range(f, v, dtype, p, lo, hi, span):
         x = torch.where(mask, acc, torch.zeros((), dtype=acc.dtype, device=acc.device))
         return Column(dtype, _range_sum(x, p, lo, hi).view(sdt), alive & has)
     if f in ("avg", "mean"):
-        x = torch.where(mask, _to_float(v.data, v.dtype), 0.0)
+        x = torch.where(mask, to_float(v.data, v.dtype), 0.0)
         s = _range_sum(x, p, lo, hi)
         return Column(FLOAT64, s / torch.clamp(cnt, min=1), alive & has)
     if f in ("min", "max"):

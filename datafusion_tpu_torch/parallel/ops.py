@@ -26,7 +26,7 @@ is eager):
 
 Expressions evaluate on per-shard Table views; string dictionaries are
 host objects shared by every shard.  Grouping takes the sort path
-(``_group_rows``), never the small-domain kernel.  Static capacities,
+(``group_rows``), never the small-domain kernel.  Static capacities,
 bucket sizes and their exact-deficit retries are the JAX package's.
 """
 
@@ -42,7 +42,15 @@ from ..columnar.table import Table, round_capacity
 from ..errors import ExecutionError, PlanError
 from ..exprs.physical import PhysCol, PhysicalExpr
 from ..ops import kernels as K
-from ..ops.aggregate import HashAggregateExec, PhysAggExpr, _eval_aggregate, _group_rows, merge_states
+from ..ops.aggregate import (
+    HashAggregateExec,
+    PhysAggExpr,
+    group_rows,
+    merge_states,
+    output_columns,
+    segment_aggregate,
+    to_float,
+)
 from ..ops.basic import _merge_dictionaries, concat_tables
 from ..ops.join import _join_keys, _key_hash, _matches_per_probe, _side_columns
 from ..types.dtypes import INT64
@@ -199,7 +207,7 @@ def _partial_states(a: PhysAggExpr, t, perm, seg, cap, alive, ngroups, grouped: 
         cnt[:1] = alive.sum()
         ok = torch.arange(cap, device=alive.device) < 1
         return [Column(INT64, cnt, ok)]
-    return _eval_aggregate(a, t, perm, seg, cap, alive, ngroups, True)
+    return segment_aggregate(a, t, perm, seg, cap, alive, ngroups, True)
 
 
 def dist_aggregate(
@@ -232,18 +240,12 @@ def dist_aggregate(
     B = bucket_cap or default_bucket(cap, ndev)
     nkeys = len(group_expr)
 
-    state_dtypes = [e.dtype for e, _ in group_expr]
-    for a in aggr_expr:
-        state_dtypes += [sd for _, sd in a.state_fields()]
-    out_names = [n for _, n in group_expr] + [a.name for a in aggr_expr]
-    out_dtypes = [e.dtype for e, _ in group_expr] + [a.return_type() for a in aggr_expr]
-    gdicts = _group_dicts(group_expr, st)
-    state_dicts = list(gdicts)
-    for a in aggr_expr:
-        sd = [None] * len(a.state_fields())
-        if a.fun in ("min", "max") and a.expr is not None:
-            sd[0] = _agg_dict(a, st)
-        state_dicts += sd
+    _, state_dtypes, state_dicts = _output_columns(
+        HashAggregateExec("partial", group_expr, aggr_expr, None), st
+    )
+    out_names, out_dtypes, dicts = _output_columns(
+        HashAggregateExec("single", group_expr, aggr_expr, None), st
+    )
     merge = _merge_op(group_expr, aggr_expr, state_dtypes)
     fcap = ndev * B if nkeys else cap
 
@@ -265,7 +267,7 @@ def dist_aggregate(
         key_cols = [e.evaluate(t) for e, _ in group_expr]
         part_d, part_v = [], []
         if key_cols:
-            perm, ngroups, seg, kvalids, _ = _group_rows(key_cols, alive)
+            perm, ngroups, seg, kvalids, _ = group_rows(key_cols, alive)
             kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, perm[seg.first])
             gvalid = torch.arange(pcap, device=dev) < ngroups
             part_d += list(kd)
@@ -312,7 +314,6 @@ def dist_aggregate(
             raise ExecutionError("dist_aggregate: state shuffle overflow at pinned bucket_cap")
         # exact deficit: B + ovf can never overflow again
         return dist_aggregate(st, group_expr, aggr_expr, bucket_cap=round_capacity(B + ovf))
-    dicts = list(gdicts) + [_agg_dict(a, st) for a in aggr_expr]
     out = _assemble(st, out_names, out_dtypes, [r[0] for r in res], [r[1] for r in res], fcap, dicts)
     k = len(out_names)
     return _attach_info(
@@ -328,15 +329,12 @@ def dist_aggregate(
     )
 
 
-def _group_dicts(group_expr, st: ShardedTable):
+def _output_columns(op: HashAggregateExec, st: ShardedTable):
+    """``output_columns`` of ``op`` over ``st``'s columns, learned on a
+    one-row sample."""
     sample = _sample_view(st)
-    return [e.evaluate(sample).dictionary for e, _ in group_expr]
-
-
-def _agg_dict(a: PhysAggExpr, st: ShardedTable):
-    if a.fun in ("min", "max") and a.expr is not None:
-        return a.expr.evaluate(_sample_view(st)).dictionary
-    return None
+    keys = [e.evaluate(sample) for e, _ in op.group_expr]
+    return output_columns(op, sample, keys)
 
 
 def dist_aggregate_exact(st: ShardedTable, op, bucket_cap: int | None = None):
@@ -346,8 +344,6 @@ def dist_aggregate_exact(st: ShardedTable, op, bucket_cap: int | None = None):
     needing global sets per group (DISTINCT aggregates) are exact without
     shipping set states.  ``op`` is the single-device HashAggregateExec
     (mode 'single').  Returns (ShardedTable, overflow)."""
-    from ..physical.stage_compiler import _traced_aggregate
-
     group_expr, aggr_expr = op.group_expr, op.aggr_expr
     if not group_expr:
         raise ExecutionError(
@@ -358,8 +354,7 @@ def dist_aggregate_exact(st: ShardedTable, op, bucket_cap: int | None = None):
     auto = bucket_cap is None
     B = bucket_cap or default_bucket(st.shard_cap, ndev)
     fcap = ndev * B
-    out_names = [n for _, n in group_expr] + [a.name for a in aggr_expr]
-    out_dtypes = [e.dtype for e, _ in group_expr] + [a.return_type() for a in aggr_expr]
+    out_names, out_dtypes, dicts = _output_columns(op, st)
 
     def body(me, datas, valids, n):
         dev = _dev(st, me)
@@ -369,9 +364,9 @@ def dist_aggregate_exact(st: ShardedTable, op, bucket_cap: int | None = None):
         sh_d, sh_v, new_n, ovf = yield from shuffle_by_hash(datas, valids, n, khash, ndev, B)
         t2 = _local_view(st, sh_d, sh_v, dev)
         alive2 = torch.arange(fcap, device=dev) < new_n
-        out_d, out_v, ngroups, _ = _traced_aggregate(op, t2, alive2, fcap)
-        cols = [Column(dt, d, v) for dt, d, v in zip(out_dtypes, out_d, out_v)]
-        return cols, _i64(ngroups, dev), ovf
+        out = op.aggregate(t2, alive2, fcap)
+        cols = [Column(dt, c.data, c.valid) for dt, c in zip(out_dtypes, out.columns)]
+        return cols, _i64(out.nrows_dev, dev), ovf
 
     res = run_spmd(st.mesh, body, st.shard_args(), "dist_aggregate_exact")
     ovf = int(_host_max(st, [r[2] for r in res])[0])
@@ -380,7 +375,6 @@ def dist_aggregate_exact(st: ShardedTable, op, bucket_cap: int | None = None):
         st2, r_ovf = dist_aggregate_exact(st, op, bucket_cap=round_capacity(B + ovf))
         st2.exchange_info["retries"] = st2.exchange_info.get("retries", 0) + 1
         return st2, r_ovf
-    dicts = list(_group_dicts(group_expr, st)) + [_agg_dict(a, st) for a in aggr_expr]
     st2 = _assemble(st, out_names, out_dtypes, [r[0] for r in res], [r[1] for r in res], fcap, dicts)
     _attach_info(
         st2, op="dist_aggregate_exact", mode="group_hash_placement", bucket_cap=B,
@@ -1132,7 +1126,6 @@ def _framed_window_aggregate(f, w, varg, mask, ctx):
     shard edge through `_halo_ext`; RANGE frames bisect the halo-extended
     key plane; running frames add the preceding shards' totals.  Returns
     (data, valid, overflow flag)."""
-    from ..ops.aggregate import _to_float
     from ..ops.window import _range_minmax
 
     H = _DIST_FRAME_HALO
@@ -1173,7 +1166,7 @@ def _framed_window_aggregate(f, w, varg, mask, ctx):
             acc = varg.data.to(_storage(w.dtype))
             x = torch.where(mask, acc, torch.zeros((), dtype=acc.dtype, device=dev))
         else:
-            x = torch.where(mask, _to_float(varg.data, varg.dtype), 0.0)
+            x = torch.where(mask, to_float(varg.data, varg.dtype), 0.0)
         s = yield from framed_sum(x)
         if f == "sum":
             return s, alive & has, ovf
@@ -1243,7 +1236,6 @@ def dist_window_global(st: ShardedTable, window_exprs):
     Returns (ShardedTable, overflow) like dist_window; overflow -1 means a
     RANGE frame's value window reached past the halo (the executor
     gathers)."""
-    from ..ops.aggregate import _to_float
     from ..ops.window import _peers
 
     if not global_window_eligible(window_exprs):
@@ -1386,7 +1378,7 @@ def dist_window_global(st: ShardedTable, window_exprs):
                 out_v.append(alive & has)
                 continue
             if f in ("avg", "mean"):
-                x = torch.where(mask, _to_float(varg.data, varg.dtype), 0.0)
+                x = torch.where(mask, to_float(varg.data, varg.dtype), 0.0)
                 out_d.append((yield from frame_sum(x)) / torch.clamp(gcount, min=1))
                 out_v.append(alive & has)
                 continue

@@ -21,14 +21,12 @@ import weakref
 from ..columnar.table import Table
 from ..datasource.host import HostMemoryExec
 from ..ops import kernels as K
-from ..ops.aggregate import HashAggregateExec
 from ..ops.base import ExecutionPlan
-from ..ops.basic import FilterExec, GlobalLimitExec, MemoryExec, ProjectionExec
+from ..ops.basic import FilterExec, MemoryExec, ProjectionExec
 from ..ops.join import SHRINK_SYNC_MIN_CAP, HashJoinExec
-from ..ops.sort import SortExec
 from ..ops.window import WindowAggExec
 from .morsel import MorselJoinStageExec, MorselStageExec
-from .stage_compiler import CompiledStage, compilable, node_jit_safe
+from .stage_compiler import CompiledStage, compilable, stage_chain
 
 # compiled stages by plan text and input signature, shared by the plans
 # that hold them; a stage's chain reaches its source table, so an entry
@@ -120,38 +118,6 @@ class TailStageExec(ExecutionPlan):
         return f"TailStageExec[fused x{len(self.stage.chain)}{r}]"
 
 
-def _fusable_chain(plan: ExecutionPlan):
-    """Longest fusable prefix (the grammar of `compilable`, any source).
-    Returns (chain_top_to_bottom, source_below) or (None, None)."""
-
-    def ok(n):
-        # a shared subtree is a stage boundary; the shared node itself
-        # (n is plan) may still head its own chain
-        return node_jit_safe(n) and (n is plan or not getattr(n, "_dedup_shared", False))
-
-    chain = []
-    node = plan
-    if isinstance(node, GlobalLimitExec) and ok(node):
-        chain.append(node)
-        node = node.input
-    if isinstance(node, SortExec) and ok(node):
-        chain.append(node)
-        node = node.input
-    while isinstance(node, ProjectionExec) and ok(node):
-        chain.append(node)
-        node = node.input
-    if isinstance(node, HashAggregateExec) and node.mode in ("single", "partial") and ok(node):
-        chain.append(node)
-        node = node.input
-    elif isinstance(node, WindowAggExec) and ok(node):
-        chain.append(node)
-        node = node.input
-    while isinstance(node, (FilterExec, ProjectionExec)) and ok(node):
-        chain.append(node)
-        node = node.input
-    return (chain, node) if chain else (None, None)
-
-
 class FuseStages:
     name = "fuse_stages"
 
@@ -163,9 +129,7 @@ class FuseStages:
         stream the host table's morsels through the join against the other
         side, which stays on the device (MorselJoinStageExec), for the join
         types that are sound per morsel."""
-        chain, below = _fusable_chain(plan)
-        if chain is None:
-            chain, below = [], plan
+        chain, below = stage_chain(plan)
         if not isinstance(below, HashJoinExec):
             return None
         if any(isinstance(op, WindowAggExec) for op in chain):
@@ -181,9 +145,7 @@ class FuseStages:
             )
             if below.join_type not in types:
                 continue
-            hchain, hbelow = _fusable_chain(child)
-            if hchain is None:
-                hchain, hbelow = [], child
+            hchain, hbelow = stage_chain(child)
             if not isinstance(hbelow, HostMemoryExec):
                 continue
             if not all(isinstance(op, (FilterExec, ProjectionExec)) for op in hchain):
@@ -198,9 +160,9 @@ class FuseStages:
         # host-resident sources stream morsels through the fused stage;
         # checked before StageExec, which would materialize the whole
         # table (a HostMemoryExec is a MemoryExec)
-        chain, below = _fusable_chain(plan)
+        chain, below = stage_chain(plan)
         if (
-            chain is not None
+            chain
             and isinstance(below, HostMemoryExec)
             and not any(isinstance(op, WindowAggExec) for op in chain)
         ):
@@ -213,7 +175,7 @@ class FuseStages:
         # tail fusion: a fusable prefix above a non-fusable input (a join,
         # a union, an operator whose expressions read data on the host, a
         # stage the grammar ends below) still runs as one fused pass
-        if chain is not None:
+        if chain:
             inner = self._opt(below, False)
             rebuilt = inner
             for op in reversed(chain):

@@ -101,7 +101,7 @@ class MorselStageExec(ExecutionPlan):
     """A fusable chain over a HostMemoryExec source, executed morsel-wise.
 
     ``chain`` is top-to-bottom: [Limit?, Sort?, Proj*, Agg?, Filter/Proj*]
-    (the _fusable_chain grammar).  Everything below (and including) the
+    (the ``stage_chain`` grammar).  Everything below (and including) the
     aggregate runs per morsel; the final aggregate + ops above it run once
     on the merged states."""
 

@@ -7,17 +7,10 @@ of tensor ops over the stage's buffers, keeping the reference's plan:
   * filters do NOT compact: the predicate folds into a row-validity mask
     carried to the aggregate; compaction happens at most once, where a
     sort or limit needs live rows at the front;
-  * small-domain GROUP BY (dictionary/bool keys, and integer or date keys
-    that a min/max probe of the source finds small; domain <= 256; TPC-H
-    Q1's returnflag x linestatus = 12) gives every row a slot id, and
-    every sum/count/avg over integer or decimal storage comes from ONE
-    pass of the hand-written kernel ``ops/smalldomain.py`` (K1); the
-    other aggregates are masked [domain, N] reductions;
-  * every other GROUP BY sorts the rows by their keys once, derives group
-    ids from the key boundaries and reduces each aggregate per segment
-    (``ops/aggregate.py::_eval_aggregate``); DISTINCT aggregates always
-    take this path;
-  * no-group aggregates are plain masked reductions.
+  * the aggregate is ``HashAggregateExec.aggregate`` (``ops/aggregate.py``
+    chooses its no-group, small-domain or sort path) over the row mask;
+    a scan-rooted stage probes the (min, range) of its integer and date
+    group keys in the source, which opens the small-domain path to them.
 A stage that shrinks its output learns the capacity on its first run
 (per input signature for a stage above a join); inside a speculation
 window later runs truncate to it with an overflow flag instead of reading
@@ -26,37 +19,18 @@ the count, as the reference's learned stage capacities do.
 
 from __future__ import annotations
 
-import numpy as np
 import torch
 
 from ..columnar.column import Column
-from ..columnar.table import Table, host_values, round_capacity
+from ..columnar.table import Table, host_values
 from ..device import torch_dtype
-from ..errors import InternalError, PlanError
-from ..exprs.physical import descale
+from ..errors import InternalError
 from ..ops import kernels as K
-from ..ops.aggregate import (
-    VARIANCE_FUNS,
-    HashAggregateExec,
-    PhysAggExpr,
-    _eval_aggregate,
-    _finalize_var,
-    _group_rows,
-    _neutral,
-    _to_float,
-    _udaf_inputs,
-    signed_zeros,
-    udaf_finalize,
-    zero_sign_fix,
-)
+from ..ops.aggregate import FUSED_DOMAIN_LIMIT, HashAggregateExec, output_columns
 from ..ops.base import ExecutionPlan
 from ..ops.basic import FilterExec, GlobalLimitExec, MemoryExec, ProjectionExec, clamp_rows
-from ..ops.smalldomain import MAX_COLS, smalldomain_sum_count
 from ..ops.sort import SortExec
 from ..ops.window import WindowAggExec
-
-# domain limit for the fused small-domain path (K1 takes up to 256 slots)
-FUSED_DOMAIN_LIMIT = 256
 
 
 def node_exprs(node: ExecutionPlan):
@@ -85,29 +59,44 @@ def node_jit_safe(node: ExecutionPlan) -> bool:
     return not any(e.needs_host() for e in node_exprs(node))
 
 
-def compilable(plan: ExecutionPlan) -> bool:
-    """Is this subtree one fusable stage?
+def stage_chain(plan: ExecutionPlan):
+    """The longest fusable chain from ``plan`` down, top to bottom, and the
+    node below it.
 
-    Shape: [Limit?] [Sort?] [Proj*] [Agg? | Window?] (Filter|Proj)* Memory.
+    Shape: [Limit?] [Sort?] [Proj*] [Agg? | Window?] (Filter|Proj)*.
     A shared subtree (physical/dedup.py) is a stage boundary; the shared
-    node itself may still head its own stage."""
+    node itself may still head its own chain."""
 
     def ok(n):
         return node_jit_safe(n) and (n is plan or not getattr(n, "_dedup_shared", False))
 
+    chain = []
     node = plan
     if isinstance(node, GlobalLimitExec) and ok(node):
+        chain.append(node)
         node = node.input
     if isinstance(node, SortExec) and ok(node):
+        chain.append(node)
         node = node.input
     while isinstance(node, ProjectionExec) and ok(node):
+        chain.append(node)
         node = node.input
     if isinstance(node, HashAggregateExec) and node.mode in ("single", "partial") and ok(node):
+        chain.append(node)
         node = node.input
     elif isinstance(node, WindowAggExec) and ok(node):
+        chain.append(node)
         node = node.input
     while isinstance(node, (FilterExec, ProjectionExec)) and ok(node):
+        chain.append(node)
         node = node.input
+    return chain, node
+
+
+def compilable(plan: ExecutionPlan) -> bool:
+    """Is this subtree one fusable stage: a ``stage_chain`` over a
+    MemoryExec that is not shared?"""
+    _, node = stage_chain(plan)
     return isinstance(node, MemoryExec) and not getattr(node, "_dedup_shared", False)
 
 
@@ -302,26 +291,11 @@ class CompiledStage:
                     cols.append(meta_col(w.dtype, dic))
                 t = Table(names, cols, 0, device=cpu)
             elif isinstance(op, HashAggregateExec):
+                # the keys as evaluated, then a blank column per value or state
                 key_cols = [e.evaluate(t) for e, _ in op.group_expr]
-                names = [n for _, n in op.group_expr]
-                cols = list(key_cols)
-                if op.mode == "partial":
-                    for a in op.aggr_expr:
-                        # a min/max state over strings keeps the argument's
-                        # dictionary, for the final merge
-                        dic = None
-                        if a.fun in ("min", "max") and a.expr is not None:
-                            dic = a.expr.evaluate(t).dictionary
-                        for j, (sn, sd) in enumerate(a.state_fields()):
-                            names.append(sn)
-                            cols.append(meta_col(sd, dic if j == 0 else None))
-                else:
-                    for a in op.aggr_expr:
-                        dic = None
-                        if a.fun in ("min", "max") and a.expr is not None:
-                            dic = a.expr.evaluate(t).dictionary
-                        names.append(a.name)
-                        cols.append(meta_col(a.return_type(), dic))
+                names, dtypes, dicts = output_columns(op, t, key_cols)
+                nk = len(key_cols)
+                cols = key_cols + [meta_col(dt, dic) for dt, dic in zip(dtypes[nk:], dicts[nk:])]
                 t = Table(names, cols, 0, device=cpu)
         return t
 
@@ -363,20 +337,13 @@ class CompiledStage:
                 cur_v = [c.valid for c in outs]
                 t = Table([nm for _, nm in op.exprs], outs, 0, device=dev)
             elif isinstance(op, HashAggregateExec):
-                view = self._table_view(cur_d, cur_v, t)
-                cur_d, cur_v, n, meta = _traced_aggregate(op, view, alive, cap, int_ranges)
+                t = op.aggregate(self._table_view(cur_d, cur_v, t), alive, cap, int_ranges)
+                cur_d = [c.data for c in t.columns]
+                cur_v = [c.valid for c in t.columns]
+                n = t.nrows_dev
                 cap = cur_d[0].shape[0] if cur_d else 0
                 alive = torch.arange(cap, device=dev) < n
                 compacted = True
-                t = Table(
-                    [nm for nm, _, _ in meta],
-                    [
-                        Column(dt, d, v, dic)
-                        for (nm, dt, dic), d, v in zip(meta, cur_d, cur_v)
-                    ],
-                    0,
-                    device=dev,
-                )
             elif isinstance(op, SortExec):
                 if not compacted:
                     compact()
@@ -417,419 +384,3 @@ class CompiledStage:
         if not compacted:
             compact()
         return tuple(cur_d), tuple(cur_v), n
-
-
-def _small_domain(key_cols, aggr_expr, int_ranges=None) -> int | None:
-    """Total direct-index domain if all keys are small dictionary strings
-    or bools, or small-range integers whose (min, range) the stage probed
-    (int_ranges: {key index: (min, range)})."""
-    if any(a.distinct or a.udf is not None for a in aggr_expr):
-        return None  # distinct/UDAF need the sort path
-    total = 1
-    for i, c in enumerate(key_cols):
-        if c.dtype.is_string and c.dictionary is not None:
-            total *= max(len(c.dictionary), 1) + 1  # +1 for NULL slot
-        elif c.dtype.is_bool:
-            total *= 3
-        elif int_ranges is not None and i in int_ranges:
-            total *= int_ranges[i][1] + 1
-        else:
-            return None
-        if total > FUSED_DOMAIN_LIMIT:
-            return None
-    return total
-
-
-def _agg_out_meta(op: HashAggregateExec, key_cols, emit_state):
-    """(name, dtype, dictionary) per output column of an aggregate."""
-    meta = [
-        (name, kc.dtype, kc.dictionary)
-        for kc, (_, name) in zip(key_cols, op.group_expr)
-    ]
-    for a in op.aggr_expr:
-        if emit_state:
-            for sn, sd in a.state_fields():
-                meta.append((sn, sd, None))
-        else:
-            meta.append((a.name, a.return_type(), None))
-    return meta
-
-
-def _traced_aggregate(op: HashAggregateExec, t: Table, alive, cap, int_ranges=None):
-    key_cols = [e.evaluate(t) for e, _ in op.group_expr]
-    emit_state = op.mode == "partial"
-
-    # ---- no group keys: plain masked reductions --------------------------
-    if not key_cols:
-        out_cap = round_capacity(1)  # 1 output row
-        out_d, out_v = [], []
-        for a in op.aggr_expr:
-            for data, valid in _eval_aggregate_nogroup(a, t, alive, out_cap, emit_state):
-                out_d.append(data)
-                out_v.append(valid)
-        return out_d, out_v, 1, _agg_out_meta(op, [], emit_state)
-
-    domain = _small_domain(key_cols, op.aggr_expr, int_ranges)
-    if domain is not None:
-        return _fused_small_domain_aggregate(
-            op, t, key_cols, domain, alive, cap, emit_state, int_ranges
-        )
-    return _sorted_aggregate(op, t, key_cols, alive, cap, emit_state)
-
-
-def _sorted_aggregate(op, t, key_cols, alive, cap, emit_state):
-    """The general GROUP BY: one stable sort of the rows by their group
-    keys, dead rows (the filter mask included) last; group ids from the
-    key boundaries; one segment reduction per aggregate state.  The
-    reference carries every column through its sort as a payload; here
-    the sort yields a permutation, and only the keys and the aggregates'
-    inputs are gathered by it."""
-    dev = alive.device
-    perm, ngroups, seg, kvalids, n = _group_rows(key_cols, alive)
-    alive_sorted = torch.arange(cap, device=dev) < n
-    gvalid_rows = torch.arange(cap, device=dev) < ngroups
-    # each group's keys from its first row in sorted order
-    kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, perm[seg.first])
-    out_d = list(kd)
-    out_v = [v & gvalid_rows for v in kv]
-    agg_dicts = {}
-    for a in op.aggr_expr:
-        cols = _eval_aggregate(a, t, perm, seg, cap, alive_sorted, ngroups, emit_state)
-        if a.fun in ("min", "max") and a.expr is not None and not emit_state:
-            agg_dicts[a.name] = cols[0].dictionary
-        for c in cols:
-            out_d.append(c.data)
-            out_v.append(c.valid)
-    meta = _agg_out_meta(op, key_cols, emit_state)
-    meta = [(nm, dt, agg_dicts.get(nm, dic)) for nm, dt, dic in meta]
-    return out_d, out_v, ngroups, meta
-
-
-# ---------------------------------------------------------------------------
-# fused small-domain path
-# ---------------------------------------------------------------------------
-
-
-def _fused_small_domain_aggregate(
-    op, t, key_cols, domain, alive, cap, emit_state, int_ranges=None
-):
-    dev = alive.device
-    # slot id per row: sum(code_i * stride_i); codes are sorted dictionary
-    # indices or offset integers, so arithmetic order == group sort order.
-    # Code 0 is NULL; dead rows get slot `domain` (outside every slot).
-    gid = torch.zeros(cap, dtype=torch.int32, device=dev)
-    stride = 1
-    radix = []  # (stride, base, an integer key's minimum or None) per key
-    for i in reversed(range(len(key_cols))):
-        c = key_cols[i]
-        if c.dtype.is_string or c.dtype.is_bool:
-            base = max(len(c.dictionary), 1) + 1 if c.dtype.is_string else 3
-            mn = None
-            code = c.data.to(torch.int32) + 1
-        else:  # probed small-range integer
-            mn, rng = int_ranges[i]
-            base = rng + 1
-            code = torch.clamp(c.data.to(torch.int64) - mn, 0, rng - 1).to(torch.int32) + 1
-        gid = gid + torch.where(c.valid, code, 0) * stride
-        radix.insert(0, (stride, base, mn))
-        stride *= base
-    gid = torch.where(alive, gid, torch.full_like(gid, domain)).contiguous()
-
-    # every sum/count/avg over integer/decimal storage: ONE kernel pass
-    pk = _kernel_precompute(op, t, gid, domain)
-
-    slots = torch.arange(domain, dtype=torch.int64, device=dev)
-    # rows per slot: a COUNT(*) item has them from the kernel already
-    star = next((ai for ai, a in enumerate(op.aggr_expr) if a.expr is None and ai in pk), None)
-    if star is not None:
-        counts = pk[star][1]
-    else:
-        # (bincount would read the largest id on the host)
-        counts = torch.zeros(domain + 1, dtype=torch.int64, device=dev).index_add_(
-            0, gid.to(torch.int64), torch.ones(cap, dtype=torch.int64, device=dev)
-        )[:domain]
-    present = counts > 0
-    dense = torch.cumsum(present.to(torch.int64), 0) - 1  # compacted group id
-    ngroups = present.sum()
-
-    # slot of each compacted group (a tiny domain-sized scatter)
-    slot_of_group = torch.zeros(domain, dtype=torch.int64, device=dev).scatter_reduce_(
-        0, dense.clamp(0, domain - 1), torch.where(present, slots, 0), "amax"
-    )
-
-    # at most `domain` groups can exist: emit small buffers
-    out_cap = min(cap, round_capacity(domain))
-    gvalid_row = torch.arange(out_cap, device=dev) < ngroups
-    out_d, out_v = [], []
-    # each group's key values, decoded from its slot id (code 0: NULL; an
-    # integer key's value is its minimum + code - 1).
-    # The reference gathers them from each slot's first row instead; on an
-    # H100 that min-index scatter onto a dozen hot slots took ~40 % of
-    # TPC-H Q1's time
-    for c, (st, base, mn) in zip(key_cols, radix):
-        code = torch.div(slot_of_group, st, rounding_mode="floor") % base
-        val = code - 1 if mn is None else code - 1 + mn
-        out_d.append(_pad_to(torch.where(code > 0, val, 0), out_cap, c.data.dtype))
-        out_v.append(_pad_to(code > 0, out_cap, torch.bool) & gvalid_row)
-
-    hit = None
-    for ai, a in enumerate(op.aggr_expr):
-        if ai in pk:
-            slots_out = _slots_from_kernel(a, *pk[ai], emit_state=emit_state)
-        else:
-            if hit is None:
-                hit = gid[None, :] == slots.to(torch.int32)[:, None]  # [D, N]
-            slots_out = _eval_aggregate_slots(a, t, hit, emit_state)
-        for data, valid in slots_out:
-            # reorder [D] slot values into compacted group order, pad out
-            out_d.append(_pad_to(K.gather(data, slot_of_group), out_cap, data.dtype))
-            out_v.append(_pad_to(valid[slot_of_group], out_cap, torch.bool) & gvalid_row)
-    meta = _agg_out_meta(op, key_cols, emit_state)
-    if not emit_state:
-        # min/max over strings keep the argument's dictionary
-        agg_dicts = {
-            a.name: a.expr.evaluate(t).dictionary
-            for a in op.aggr_expr
-            if a.fun in ("min", "max") and a.expr is not None
-        }
-        meta = [(nm, dt, agg_dicts.get(nm, dic)) for nm, dt, dic in meta]
-    return out_d, out_v, ngroups, meta
-
-
-def _kernel_agg_item(a: PhysAggExpr, t: Table):
-    """(data_i64, mask, kind, scale) if `a` is computable from exact int64
-    sums and counts, else None."""
-    if a.distinct or a.udf is not None:
-        return None
-    if a.expr is None:  # COUNT(*)
-        return (None, None, "count", 0)
-    v = a.expr.evaluate(t)
-    if a.fun == "count":
-        return (None, v.valid, "count", 0)
-    if not (v.dtype.is_integer or v.dtype.is_decimal):
-        return None
-    if a.fun == "sum" and a.return_type().storage_np_dtype() == np.int64:
-        return (v.data.to(torch.int64), v.valid, "sum", 0)
-    if a.fun == "avg":
-        scale = v.dtype.scale if v.dtype.is_decimal else 0
-        return (v.data.to(torch.int64), v.valid, "avg", scale)
-    return None
-
-
-def _kernel_precompute(op, t: Table, gid, domain: int):
-    """Run K1 for every eligible aggregate, up to 8 columns per launch;
-    returns {agg_index: (sum_slots, cnt_slots, kind, scale)}."""
-    items = []
-    for ai, a in enumerate(op.aggr_expr):
-        it = _kernel_agg_item(a, t)
-        if it is not None:
-            items.append((ai, it))
-    out = {}
-    for lo in range(0, len(items), MAX_COLS):
-        chunk = items[lo : lo + MAX_COLS]
-        sums, cnts = smalldomain_sum_count(
-            gid,
-            [d if d is None else d.contiguous() for _, (d, _, _, _) in chunk],
-            [m if m is None else m.contiguous() for _, (_, m, _, _) in chunk],
-            domain,
-        )
-        for j, (ai, it) in enumerate(chunk):
-            out[ai] = (sums[:, j], cnts[:, j], it[2], it[3])
-    return out
-
-
-def _slots_from_kernel(a, s_i64, cnt, kind, scale, emit_state):
-    """Map kernel (sum, count) slots into _eval_aggregate_slots' output
-    forms (state layouts must match _agg_out_meta exactly)."""
-    cnt64 = cnt.to(torch.int64)
-    ones = torch.ones_like(cnt64, dtype=torch.bool)
-    has = cnt64 > 0
-    if kind == "count":
-        return [(cnt64, ones)]
-    if kind == "sum":
-        if emit_state:
-            return [(s_i64, has), (cnt64, ones)]
-        return [(s_i64, has)]
-    # avg: float state/result, descaled for decimals (same as _to_float)
-    sf = descale(s_i64.to(torch.float64), scale)
-    if emit_state:
-        return [(sf, ones), (cnt64, ones)]
-    return [(sf / torch.clamp(cnt64, min=1), has)]
-
-
-def _eval_aggregate_slots(a: PhysAggExpr, t: Table, hit, emit_state):
-    """Per-slot ([D]-shaped) aggregate values as (data, valid) pairs."""
-    f = a.fun
-
-    if a.expr is None:  # COUNT(*)
-        cnt = hit.sum(dim=1)
-        return [(cnt, torch.ones_like(cnt, dtype=torch.bool))]
-
-    v = a.expr.evaluate(t)
-    vv = hit & v.valid[None, :]  # [D, N] valid-and-in-slot
-    cnt = vv.sum(dim=1)
-    has = cnt > 0
-    ones = torch.ones_like(cnt, dtype=torch.bool)
-
-    if f == "count":
-        return [(cnt, ones)]
-
-    if f == "sum":
-        dt = torch_dtype(a.return_type().storage_np_dtype())
-        acc = K.signed_view(v.data.to(dt))
-        zero = torch.zeros((), dtype=acc.dtype, device=acc.device)
-        s = torch.where(vv, acc[None, :], zero).sum(dim=1).view(dt)
-        if emit_state:
-            return [(s, has), (cnt, ones)]
-        return [(s, has)]
-
-    if f in ("min", "max"):
-        t_in = v.dtype
-        ordk = v.data if t_in.is_float else K.orderable_key(v.data, t_in)
-        vals = torch.where(vv, ordk[None, :], _neutral(ordk, f))
-        red = vals.amin(dim=1) if f == "min" else vals.amax(dim=1)
-        if t_in.is_float:
-            red = zero_sign_fix(red, f, (hit & signed_zeros(v.data, v.valid, f)[None, :]).any(dim=1))
-        out = red.to(torch_dtype(t_in.storage_np_dtype()))
-        if emit_state:
-            return [(out, has), (cnt, ones)]
-        return [(out, has)]
-
-    if f == "avg":
-        fd = _to_float(v.data, v.dtype)
-        s = torch.where(vv, fd[None, :], 0.0).sum(dim=1)
-        if emit_state:
-            return [(s, torch.ones_like(has)), (cnt, ones)]
-        return [(s / torch.clamp(cnt, min=1), has)]
-
-    if f in VARIANCE_FUNS:
-        fd = _to_float(v.data, v.dtype)
-        s = torch.where(vv, fd[None, :], 0.0).sum(dim=1)
-        ss = torch.where(vv, (fd * fd)[None, :], 0.0).sum(dim=1)
-        if emit_state:
-            return [(cnt, ones), (s, ones), (ss, ones)]
-        return [_finalize_var(f, cnt, s, ss)]
-
-    raise PlanError(f"aggregate '{f}' not implemented in fused path")
-
-
-def _one(x: torch.Tensor, valid_scalar, dtype, out_cap):
-    """One output row (padded to out_cap) as a (data, valid) pair."""
-    data = torch.zeros(out_cap, dtype=dtype, device=x.device)
-    data[:1].fill_(x.to(dtype))
-    valid = torch.zeros(out_cap, dtype=torch.bool, device=x.device)
-    # fills: assigning a host scalar copies it to the card and waits
-    valid[:1].fill_(valid_scalar)
-    return data, valid
-
-
-def _eval_aggregate_nogroup(a: PhysAggExpr, t: Table, alive, out_cap, emit_state):
-    """Aggregate over ALL live rows -> 1 output row (padded to out_cap),
-    as (data, valid) pairs."""
-    f = a.fun
-    dev = alive.device
-
-    def one(x, valid_scalar, dtype):
-        return _one(x, valid_scalar, dtype, out_cap)
-
-    if a.distinct:
-        return _eval_aggregate_nogroup_distinct(a, t, alive, out_cap, emit_state)
-    if a.udf is not None:
-        # the user's monoid folded over every live valid value, in the
-        # order of the reference's associative scan
-        v = a.expr.evaluate(t)
-        m = alive & v.valid
-        x = _udaf_inputs(a, v.data, m)
-        acc = K.assoc_scan(lambda p, q: (a.udf.step(p[0], q[0]),), (x,))[0][-1]
-        cnt = m.sum()
-        if emit_state:
-            return [one(acc, True, x.dtype), one(cnt, True, torch.int64)]
-        return [one(udaf_finalize(a, acc, cnt), cnt > 0, x.dtype)]
-
-    if a.expr is None:
-        return [one(alive.sum(), True, torch.int64)]
-
-    v = a.expr.evaluate(t)
-    m = alive & v.valid
-    cnt = m.sum()
-    has = cnt > 0
-
-    if f == "count":
-        return [one(cnt, True, torch.int64)]
-    if f == "sum":
-        dt = torch_dtype(a.return_type().storage_np_dtype())
-        acc = K.signed_view(v.data.to(dt))
-        s = torch.where(m, acc, torch.zeros((), dtype=acc.dtype, device=dev)).sum().view(dt)
-        if emit_state:
-            return [one(s, has, dt), one(cnt, True, torch.int64)]
-        return [one(s, has, dt)]
-    if f in ("min", "max"):
-        t_in = v.dtype
-        dt = torch_dtype(t_in.storage_np_dtype())
-        ordk = v.data if t_in.is_float else K.orderable_key(v.data, t_in)
-        vals = torch.where(m, ordk, _neutral(ordk, f))
-        red = vals.amin() if f == "min" else vals.amax()
-        if t_in.is_float:
-            red = zero_sign_fix(red, f, signed_zeros(v.data, m, f).any())
-        if emit_state:
-            return [one(red, has, dt), one(cnt, True, torch.int64)]
-        return [one(red, has, dt)]
-    if f == "avg":
-        s = torch.where(m, _to_float(v.data, v.dtype), 0.0).sum()
-        if emit_state:
-            return [one(s, True, torch.float64), one(cnt, True, torch.int64)]
-        return [one(s / torch.clamp(cnt, min=1), has, torch.float64)]
-    if f in VARIANCE_FUNS:
-        fd = _to_float(v.data, v.dtype)
-        s = torch.where(m, fd, 0.0).sum()
-        ss = torch.where(m, fd * fd, 0.0).sum()
-        if emit_state:
-            return [
-                one(cnt, True, torch.int64),
-                one(s, True, torch.float64),
-                one(ss, True, torch.float64),
-            ]
-        out, ok = _finalize_var(f, cnt, s, ss)
-        return [one(out, ok, torch.float64)]
-    raise PlanError(f"aggregate '{f}' not implemented in fused path")
-
-
-def _eval_aggregate_nogroup_distinct(a, t, alive, out_cap, emit_state):
-    """COUNT/SUM/AVG(DISTINCT x) without groups: sort the values, count
-    each run of equal values once."""
-    v = a.expr.evaluate(t)
-    dev = alive.device
-    cap = alive.shape[0]  # the sort runs over the input rows
-    ordk = K.orderable_key(v.data, v.dtype)
-    m = alive & v.valid
-    sk = torch.sort(K.sort_key(torch.where(m, ordk, _neutral(ordk, "min")))).values  # nulls last
-    ar = torch.arange(cap, device=dev)
-    firsts = (ar < m.sum()) & ((ar == 0) | (sk != torch.roll(sk, 1)))
-    cnt = firsts.sum()
-    f = a.fun
-    if f == "count":
-        return [_one(cnt, True, torch.int64, out_cap)]
-    if f in ("sum", "avg"):
-        vals = torch.where(firsts, sk, torch.zeros((), dtype=sk.dtype, device=dev))
-        if f == "avg":
-            s = vals.to(torch.float64).sum()
-            if v.dtype.is_decimal:  # the orderable key is the scaled int
-                s = descale(s, v.dtype.scale)
-            return [_one(s / torch.clamp(cnt, min=1), cnt > 0, torch.float64, out_cap)]
-        # accumulate at the RETURN width (keys may ride narrowed int32)
-        dt = torch_dtype(a.return_type().storage_np_dtype())
-        return [_one(K.signed_view(vals.to(dt)).sum(), cnt > 0, dt, out_cap)]
-    if f in ("min", "max"):
-        return _eval_aggregate_nogroup(
-            PhysAggExpr(f, a.expr, a.name, False), t, alive, out_cap, emit_state
-        )
-    raise PlanError(f"DISTINCT {f} not supported")
-
-
-def _pad_to(x, cap, dtype):
-    n = x.shape[0]
-    if n == cap:
-        return x.to(dtype)
-    if n > cap:
-        return x[:cap].to(dtype)
-    return torch.cat([x.to(dtype), torch.zeros(cap - n, dtype=dtype, device=x.device)])

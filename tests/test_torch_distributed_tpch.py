@@ -37,7 +37,7 @@ import datafusion_tpu.physical.stage_compiler as jsc
 import datafusion_tpu_torch as D
 import datafusion_tpu_torch.distributed as PD
 import datafusion_tpu_torch.distributed.serde as pserde
-import datafusion_tpu_torch.physical.stage_compiler as psc
+import datafusion_tpu_torch.ops.aggregate as pagg
 from datafusion_tpu_torch.queries import FULLY_ORDERED, get_query_sql
 
 from torch_mesh import assert_same_rows, jax_tables, one_torch_thread  # noqa: F401 (autouse fixture)
@@ -173,11 +173,11 @@ def test_distributed_rows_equal_the_jax_package(q, port_cluster):
 
 def test_distributed_q1_calls_k1_once_per_scan_task(monkeypatch):
     jrec = Recorder(jsc._fused_small_domain_aggregate)
-    prec = Recorder(psc._fused_small_domain_aggregate)
-    k1 = Recorder(psc.smalldomain_sum_count)
+    prec = Recorder(pagg._fused_small_domain_aggregate)
+    k1 = Recorder(pagg.smalldomain_sum_count)
     monkeypatch.setattr(jsc, "_fused_small_domain_aggregate", jrec)
-    monkeypatch.setattr(psc, "_fused_small_domain_aggregate", prec)
-    monkeypatch.setattr(psc, "smalldomain_sum_count", k1)
+    monkeypatch.setattr(pagg, "_fused_small_domain_aggregate", prec)
+    monkeypatch.setattr(pagg, "smalldomain_sum_count", k1)
     jctx, pctx = contexts()
     # one executor thread: the recorders count without a lock
     for engine, ctx, kw in ((JD, jctx, {}), (PD, pctx, {"device": "cpu"})):

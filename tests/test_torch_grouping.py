@@ -30,8 +30,8 @@ import datafusion_tpu.physical.stage_compiler as jsc
 from datafusion_tpu.columnar.table import Table as JTable
 from datafusion_tpu.types.dtypes import DATE32 as JDATE32, decimal as jdecimal
 import datafusion_tpu_torch as D
+import datafusion_tpu_torch.ops.aggregate as pagg
 import datafusion_tpu_torch.physical.fuse as pfuse
-import datafusion_tpu_torch.physical.stage_compiler as psc
 from datafusion_tpu_torch.queries import NAMED_QUERIES, get_named_query
 
 from torch_parity import Recorder, assert_rows_equal, port_table
@@ -41,11 +41,11 @@ def run_both(jtable, ptable, sql, monkeypatch):
     the port's K1 calls) for one query on fresh contexts and stage caches,
     so that the JAX package traces its stage anew."""
     jrec = Recorder(jsc._fused_small_domain_aggregate)
-    prec = Recorder(psc._fused_small_domain_aggregate)
-    k1 = Recorder(psc.smalldomain_sum_count)
+    prec = Recorder(pagg._fused_small_domain_aggregate)
+    k1 = Recorder(pagg.smalldomain_sum_count)
     monkeypatch.setattr(jsc, "_fused_small_domain_aggregate", jrec)
-    monkeypatch.setattr(psc, "_fused_small_domain_aggregate", prec)
-    monkeypatch.setattr(psc, "smalldomain_sum_count", k1)
+    monkeypatch.setattr(pagg, "_fused_small_domain_aggregate", prec)
+    monkeypatch.setattr(pagg, "smalldomain_sum_count", k1)
     monkeypatch.setattr(jfuse, "_STAGE_CACHE", {})
     monkeypatch.setattr(pfuse, "_STAGE_CACHE", {})
     jctx = J.ExecutionContext()

@@ -1,6 +1,9 @@
 """Import hygiene of the torch port: neither datafusion_tpu_torch nor
 chip_smoke.py imports jax, the JAX package (datafusion_tpu) or bench, and
-the package loads and runs a query with jax made unimportable."""
+the package loads and runs a query with jax made unimportable.  The
+operator, expression and column layers import nothing from the stage
+compiler's or the mesh's layers above them, and no module reaches into
+the private names of the GROUP BY module (ops/aggregate.py)."""
 
 import ast
 import subprocess
@@ -12,6 +15,9 @@ import pytest
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = {"jax", "jaxlib", "datafusion_tpu", "bench"}
 SOURCES = sorted((ROOT / "datafusion_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+LOWER_LAYERS = ("ops", "exprs", "columnar")
+UPPER_LAYERS = ("datafusion_tpu_torch.physical", "datafusion_tpu_torch.parallel")
+AGGREGATE = "datafusion_tpu_torch.ops.aggregate"
 
 
 def _imported_roots(path: Path) -> set[str]:
@@ -22,6 +28,23 @@ def _imported_roots(path: Path) -> set[str]:
         elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
             roots.add(node.module.split(".")[0])
     return roots
+
+
+def _imports(path: Path):
+    """(absolute module, names) of each import in ``path``, relative ones
+    resolved against the file's package; ``names`` is empty for a plain
+    ``import``."""
+    package = list(path.relative_to(ROOT).with_suffix("").parts[:-1])
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            yield from ((a.name, []) for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            base = package[: len(package) - node.level + 1] if node.level else []
+            module = ".".join(base + ([node.module] if node.module else []))
+            names = [a.name for a in node.names]
+            yield module, names
+            # ``from ..ops import aggregate`` imports the module itself
+            yield from ((f"{module}.{n}", []) for n in names)
 
 
 def test_sources_are_found():
@@ -45,6 +68,20 @@ def test_the_distributed_modules_and_the_cli_are_checked():
 def test_no_jax_or_reference_imports(path):
     bad = _imported_roots(path) & FORBIDDEN
     assert not bad, f"{path.relative_to(ROOT)} imports {sorted(bad)}"
+
+
+@pytest.mark.parametrize("path", SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_layers_and_the_aggregate_seam(path):
+    parts = path.relative_to(ROOT).parts
+    lower = parts[0] == "datafusion_tpu_torch" and len(parts) > 2 and parts[1] in LOWER_LAYERS
+    for module, names in _imports(path):
+        if lower:
+            assert not any(module == up or module.startswith(up + ".") for up in UPPER_LAYERS), (
+                f"{path.relative_to(ROOT)} imports {module} from a layer above it"
+            )
+        if module == AGGREGATE:
+            private = [n for n in names if n.startswith("_")]
+            assert not private, f"{path.relative_to(ROOT)} imports {private} from ops/aggregate.py"
 
 
 def test_package_runs_with_jax_blocked():
