@@ -11,6 +11,21 @@ Phases (each raises, and the script exits non-zero, on failure):
   3. kernels - each kernel against its plain PyTorch version on the card,
                at the main path's shapes and at edge cases (K1_CASES of
                datafusion_tpu_torch/ops/smalldomain_cases.py); exact
+  3b. take   - K2 (datafusion_tpu_torch/ops/take.py) at the column sets
+               it moves in TPC-H at SF10 (Q7's widest join side, Q21's pair
+               table, a stage's compaction of 2^26 rows), each with a
+               monotone and a random index: bit for bit against its plain
+               version on the card, then its time alone beside its byte
+               bound (a source larger than L2 costs a 32-byte sector for
+               each row read in a new sector, one that fits costs at most
+               its size) and the per-column PyTorch form it replaced.
+               Every later phase counts K2's launches per path, as K1's
+               (the count set to 0 before each path's run, the launches
+               of a graph's replay read by the profiler), and every phase
+               that collects on the card must launch it; on the main path
+               (Q1) and at SF10 device-resident K2 is held against its
+               plain version, bit for bit, at the inputs of every call
+               it makes
   4. main    - TPC-H Q1 at SF1 through ExecutionContext().sql(q1).collect(),
                four times: the cold run (node by node, learning
                capacities), the check (the speculative path with host
@@ -192,6 +207,7 @@ import datetime
 import hashlib
 import io
 import json
+import math
 import os
 import re
 import socket
@@ -210,12 +226,14 @@ from datafusion_tpu_torch.build import BUILD_LOG, build_all, library_path
 from datafusion_tpu_torch.columnar.table import HOST_SYNCS
 from datafusion_tpu_torch.cli import print_result
 from datafusion_tpu_torch.datasource.host import HostTable
+from datafusion_tpu_torch.device import capturing
 from datafusion_tpu_torch.distributed import DistributedContext, TableStore, serde, shuffle_io
 from datafusion_tpu_torch.distributed import exchange as X
 from datafusion_tpu_torch.distributed.rpc import RpcSchedulerClient
 from datafusion_tpu_torch.ops import aggregate
 from datafusion_tpu_torch.ops import kernels as K
 from datafusion_tpu_torch.ops import smalldomain as SD
+from datafusion_tpu_torch.ops import take as TK
 from datafusion_tpu_torch.ops.join import HashJoinExec
 from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
 from datafusion_tpu_torch.parallel.collectives import EXCHANGE_RANGE
@@ -260,10 +278,19 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# K2's launches per path (TakeRecorder adds to it), as K1's are kept, and
+# the sum of a phase's paths (phase_done)
+K2_BY_PATH: dict = {}
+K2_BY_PHASE: dict = {}
+K2_CHECKED: dict = {}  # per path, the calls held against the plain version
+
+
 def phase_done(name: str, t0: float) -> float:
-    """Print a phase's seconds; returns the time the next phase starts."""
+    """Print a phase's seconds and K2's launches on its paths; returns the
+    time the next phase starts."""
     now = time.perf_counter()
-    log(f"[phase] {name}: {now - t0:.3f} s")
+    K2_BY_PHASE[name] = sum(K2_BY_PATH.values()) - sum(K2_BY_PHASE.values())
+    log(f"[phase] {name}: {now - t0:.3f} s; K2 launched {K2_BY_PHASE[name]} times on its paths")
     return now
 
 
@@ -341,6 +368,190 @@ def phase_kernels() -> int:
                 raise AssertionError("K1 all-dead: non-zero output")
         del args
     return err
+
+
+# ---------------------------------------------------------------------------
+# phase 3b: K2 at SF10's shapes
+# ---------------------------------------------------------------------------
+
+# (source rows, output rows, int64 columns, int32 columns, row mask, outer
+# index): the column sets the port moves in TPC-H at SF10
+K2_SHAPES = {
+    # Q7's widest join output side: the probe's accumulated columns at li[sel]
+    "q7-join-side": (1 << 25, 1 << 25, 11, 2, True, True),
+    # Q21's residual filter: lineitem's four columns at each candidate pair
+    "q21-pair-table": (1 << 26, 1 << 26, 2, 2, False, False),
+    # a stage's compaction of 2^26 lineitem rows (Q3's, Q7's first stages)
+    "compaction-2^26": (1 << 26, 1 << 26, 4, 1, True, False),
+}
+
+
+def same_bits(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Equal dtype, shape and bits (a NaN equals the same NaN)."""
+    if a.dtype != b.dtype or a.shape != b.shape:
+        return False
+    if a.is_floating_point():
+        view = {2: torch.int16, 4: torch.int32, 8: torch.int64}[a.element_size()]
+        a, b = a.view(view), b.view(view)
+    return torch.equal(a, b)
+
+
+def k2_inputs(shape, order: str, seed: int):
+    """A K2 call at ``shape`` (K2_SHAPES) with a ``monotone`` index (a
+    compaction's stable partition, a probe side's rows) or a ``random``
+    one (a build side's rows), made on the card."""
+    cap, n, n64, n32, masked, outer = shape
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    dev = torch.device("cuda")
+    datas = tuple(torch.randint(-(1 << 62), 1 << 62, (cap,), generator=g, device=dev) for _ in range(n64))
+    datas += tuple(torch.randint(-(1 << 30), 1 << 30, (cap,), generator=g, device=dev,
+                                 dtype=torch.int32) for _ in range(n32))
+    valids = tuple(torch.rand(cap, generator=g, device=dev) > 0.1 for _ in datas)
+    if order == "monotone":
+        keep = torch.rand(cap, generator=g, device=dev) > 0.5
+        idx = torch.cat([keep.nonzero()[:, 0], (~keep).nonzero()[:, 0]])[:n]
+    else:
+        idx = torch.randint(0, cap, (n,), generator=g, device=dev)
+    sel = torch.sort(torch.randint(0, n, (n,), generator=g, device=dev)).values if outer else None
+    mask = torch.arange(n, device=dev) < (n * 3) // 4 if masked else None
+    return datas, valids, idx, mask, sel
+
+
+def k2_bound_ms(datas, valids, idx, mask, sel) -> float:
+    """The least bytes K2's work needs from HBM, over the HBM rate: the
+    index, the row mask, each output row, and each source's rows read.  A
+    source larger than L2 costs the 32-byte sectors a reader in output
+    order fetches: a row in the sector of the row before it costs nothing
+    more, any other its sectors (a scattered row costs a whole sector,
+    rising rows their bytes).  A source that fits in L2 costs at most its
+    size, read once: an order that reads it alone keeps it resident.  The
+    outer index's reads of the index count the same way."""
+    n = (idx if sel is None else sel).shape[0]
+    j = torch.clamp(idx if sel is None else idx[sel], min=0)
+    l2 = torch.cuda.get_device_properties(idx.device).L2_cache_size
+
+    def read(t: torch.Tensor, stride: int, width: int, at: torch.Tensor) -> int:
+        start = t.data_ptr() % 32 + at * stride
+        first, last = start // 32, (start + width - 1) // 32
+        fresh = torch.ones_like(first, dtype=torch.bool)
+        fresh[1:] = (first[1:] != last[:-1]) & (first[1:] != first[:-1])
+        sectors = 32 * int((fresh * (last - first + 1)).sum())
+        size = (t.shape[0] - 1) * stride + width  # the source's bytes
+        return min(sectors, size) if size <= l2 else sectors
+
+    nbytes = 8 * n
+    if sel is not None:
+        nbytes += read(idx, 8, 8, sel)
+    if mask is not None:
+        nbytes += n
+    for t in datas + valids:
+        width = t.element_size() * math.prod(t.shape[1:])
+        nbytes += read(t, t.stride(0) * t.element_size(), width, j) + n * width
+    return nbytes / HBM_BYTES_PER_S * 1e3
+
+
+def k2_equal(label: str, args, got) -> None:
+    """K2's outputs ``got`` at ``args`` against the plain version's, bit
+    for bit; the card's sync guard is lifted for the comparison (a
+    whole-query check refuses host reads)."""
+    mode = torch.cuda.get_sync_debug_mode()
+    torch.cuda.set_sync_debug_mode(0)
+    try:
+        want = TK.take_plain(*args)
+        bad = [i for i, (a, b) in enumerate(zip(got[0] + got[1], want[0] + want[1])) if not same_bits(a, b)]
+    finally:
+        torch.cuda.set_sync_debug_mode(mode)
+    if bad or len(got[0]) != len(want[0]) or len(got[1]) != len(want[1]):
+        raise AssertionError(f"K2 {label}: outputs {bad} differ from the plain version")
+
+
+def k2_launches(args) -> int:
+    """The launches K2 makes for one call at ``args`` (the wrapper splits
+    a table into launches of up to MAX_ITEMS buffers)."""
+    datas, valids, idx, _, sel = args
+    n = (idx if sel is None else sel).shape[0]
+    items = len(datas) + len(valids)
+    return -(-items // TK.MAX_ITEMS) if n and items else 0
+
+
+class TakeRecorder:
+    """Wraps ``K.take``, the route to K2 of every site that moves rows, for
+    the runs of one path: K2's launch count is set to 0 on entry and added
+    to ``K2_BY_PATH[path]`` on exit (a graph's replay runs K2 without the
+    wrapper and adds nothing).  With ``check``, every call is held against
+    the plain version bit for bit at its own inputs: at once outside a
+    capture, where the comparison adds a sync and the plain version's
+    buffers to the run; a call that a capture records is kept in
+    ``captured`` (its buffers then stay out of the graph pool's reuse) and
+    checked by ``check_captured`` after the graph's replay, when its
+    tensors hold the replay's values."""
+
+    def __init__(self, path: str, check: bool = False):
+        self.path, self.check = path, check
+        self.calls = self.checked = self.launches = self.recorded = 0
+        self.captured = []
+
+    def __enter__(self):
+        self.fn, K.take = K.take, self
+        TK.take.launches = 0
+        return self
+
+    def __exit__(self, *exc):
+        K.take = self.fn
+        self.launches = TK.take.launches
+        K2_BY_PATH[self.path] = K2_BY_PATH.get(self.path, 0) + self.launches
+        return False
+
+    def __call__(self, datas, valids, idx, mask=None, sel=None):
+        out = self.fn(datas, valids, idx, mask, sel)
+        args = (tuple(datas), tuple(valids), idx, mask, sel)
+        self.calls += 1
+        if capturing():
+            self.recorded += k2_launches(args)
+            if self.check:
+                self.captured.append(args)
+        elif self.check:
+            k2_equal(f"{self.path} call {self.calls}", args, out)
+            self.checked += 1
+            K2_CHECKED[self.path] = K2_CHECKED.get(self.path, 0) + 1
+        return out
+
+    def check_captured(self) -> int:
+        """Each call the capture recorded, at its inputs now, against the
+        plain version; returns how many."""
+        n = len(self.captured)
+        for i, args in enumerate(self.captured):
+            k2_equal(f"{self.path} captured call {i}", args, self.fn(*args))
+        self.checked += n
+        K2_CHECKED[self.path] = K2_CHECKED.get(self.path, 0) + n
+        self.captured = []
+        return n
+
+
+def phase_take(name_power: str) -> dict:
+    """K2 at SF10's shapes (K2_SHAPES), with monotone and random indices:
+    bit for bit against its plain version on the card, then alone
+    (torch.profiler) beside its byte bound and the per-column PyTorch form
+    it replaced (``take_plain``: an index kernel per buffer, the clamp, an
+    AND per mask)."""
+    timing = {}
+    for name, shape in K2_SHAPES.items():
+        for order in ("monotone", "random"):
+            args = k2_inputs(shape, order, SEED)
+            k2_equal(f"{name} {order}", args, TK.take(*args))
+            items = len(args[0]) + len(args[1])
+            ms, kept = kernel_only_ms(lambda: TK.take(*args), "take_kernel", 20)
+            row = {"n": shape[1], "items": items, "ms": ms, "launches_kept": kept,
+                   "bound_ms": k2_bound_ms(*args), "library_ms": cuda_ms(lambda: TK.take_plain(*args), 3)}
+            timing[f"{name}-{order}"] = row
+            log(f"[take] {name_power}: {name} {order} (n={row['n']}, {items} buffers"
+                f"{', outer index' if args[4] is not None else ''}{', row mask' if args[3] is not None else ''}): "
+                f"{ms:.4f} ms kernel alone ({kept} of 20 launches), byte bound {row['bound_ms']:.4f} ms "
+                f"({row['bound_ms'] / ms:.1%} of bound); per-column PyTorch {row['library_ms']:.4f} ms "
+                f"({row['library_ms'] / ms:.2f}x); bit for bit equal")
+            del args
+            torch.cuda.empty_cache()
+    return timing
 
 
 # K1 cases timed besides Q1's inputs (cell copies 8, 2 and 2)
@@ -553,20 +764,24 @@ def phase_main(sql: str, name_power: str):
     want = q1_oracle(lineitem_q1_arrays(SF, SEED))
     rec = Recorder(aggregate.smalldomain_sum_count)
     aggregate.smalldomain_sum_count = rec
-    times, rows, per_run = [], [], []
+    times, rows, per_run, k2 = [], [], [], []
     try:
         SD.smalldomain_sum_count.launches = 0
         for _ in range(3):
             before = SD.smalldomain_sum_count.launches
             t0 = time.perf_counter()
-            rows.append(ctx.sql(sql).collect().to_pydict())
+            with TakeRecorder("q1", check=True) as k2_run:
+                rows.append(ctx.sql(sql).collect().to_pydict())
             times.append((time.perf_counter() - t0) * 1e3)
             per_run.append(SD.smalldomain_sum_count.launches - before)
+            k2.append(k2_run)
+        k2[2].check_captured()
         got = {}
         prof = profiled_replay(lambda: got.update(ctx.sql(sql).collect().to_pydict()), "Q1",
-                               len(rec.calls) - sum(per_run))
+                               len(rec.calls) - sum(per_run), k2_recorded=k2[2].recorded)
         rows.append(got)
         launches = SD.smalldomain_sum_count.launches + prof["k1_launches"]
+        K2_BY_PATH["q1"] += prof["k2_launches"]
     finally:
         aggregate.smalldomain_sum_count = rec.fn
     for got in rows:
@@ -577,12 +792,23 @@ def phase_main(sql: str, name_power: str):
         raise AssertionError(f"Q1: K1 launches per run {per_run} (cold, check, capture), "
                              f"{len(rec.calls)} calls, {prof['k1_launches']} in the profiled "
                              f"replay; want 1, 1, 0, three calls (one recorded) and 1")
+    k2_runs = [r.launches for r in k2]
+    if not (k2_runs[0] and k2_runs[1]) or k2_runs[2] or not k2[2].recorded \
+            or any(r.checked != r.calls for r in k2):
+        raise AssertionError(f"Q1: K2 launches per run {k2_runs} (cold, check, capture), "
+                             f"{k2[2].recorded} recorded by the capture, calls {[r.calls for r in k2]}, "
+                             f"checked {[r.checked for r in k2]}; want launches in the cold run and "
+                             f"the check, none in the capture, and every call checked")
     log(f"[main] Q1 SF{SF}: the cold run, the check, the captured graph's replay and one more "
         f"replay match the numpy oracle (exact sums/counts, avgs rel 1e-12); {graph_state(wq)}; "
         f"smalldomain_sum_count launches={launches}: {per_run[0]} in the cold run, {per_run[1]} in "
         f"the check, {len(rec.calls) - sum(per_run)} recorded by the capture, "
         f"{prof['k1_launches']} run by the profiled replay (the capture's own replay is not "
-        f"counted); runs {['%.3f' % t for t in times]} ms")
+        f"counted); take launches={K2_BY_PATH['q1']}: {k2_runs[0]} in the cold run, {k2_runs[1]} in "
+        f"the check, {k2[2].recorded} recorded by the capture, {prof['k2_launches']} run by the "
+        f"profiled replay; K2 equal to its plain version bit for bit at all {K2_CHECKED['q1']} calls' "
+        f"inputs (the captured ones after the replay); runs {['%.3f' % t for t in times]} ms (K2's "
+        f"checks inside the first two)")
     log(f"[profile] {name_power}: one warm Q1 replay (profiled) {prof['profiled_wall_ms']:.3f} ms wall, "
         f"{prof['kernel_ms']:.3f} ms kernel time in {prof['launches']} launches, device idle share "
         f"{prof['idle_share']:.1%}")
@@ -689,28 +915,38 @@ def profile_run(run, top: int = 15) -> dict:
 
 
 K1_KERNEL = "smalldomain_sum_count_kernel"
+K2_KERNEL = "take_kernel"
 
 
-def profiled_replay(run, label: str, recorded: int, tries: int = 3) -> dict:
+def profiled_replay(run, label: str, recorded: int, tries: int = 3, k2_recorded: int | None = None) -> dict:
     """One warm call of ``run`` (a replay of a captured graph) under
     torch.profiler (``profile_run``), with K1's launches counted among the
     kernels the card ran: they must equal the ``recorded`` K1 calls of the
-    capture.  The profiler may drop a kernel record, so a replay that shows
-    fewer is profiled again, up to ``tries`` times; one that shows more
-    fails at once.  The dict gains ``k1_launches``."""
+    capture; K2's likewise, where ``k2_recorded`` gives the launches the
+    capture recorded.  The profiler may drop a kernel record, so a replay
+    that shows fewer is profiled again, up to ``tries`` times; one that
+    shows more fails at once.  The dict gains ``k1_launches`` (and
+    ``k2_launches``)."""
+    want = {"K1": (K1_KERNEL, recorded)}
+    if k2_recorded is not None:
+        want["K2"] = (K2_KERNEL, k2_recorded)
     for _ in range(tries):
         prof = profile_run(run)
-        seen = sum(n for k, n in prof["kernel_counts"].items() if K1_KERNEL in k)
-        if seen > recorded:
-            raise AssertionError(f"{label}: the replay ran K1 {seen} times, the capture recorded "
-                                 f"{recorded} calls")
-        if seen == recorded:
-            prof["k1_launches"] = seen
+        seen = {k: sum(n for key, n in prof["kernel_counts"].items() if kernel in key)
+                for k, (kernel, _) in want.items()}
+        for k, (_, n) in want.items():
+            if seen[k] > n:
+                raise AssertionError(f"{label}: the replay ran {k} {seen[k]} times, the capture "
+                                     f"recorded {n} launches")
+        if all(seen[k] == n for k, (_, n) in want.items()):
+            prof["k1_launches"] = seen["K1"]
+            if "K2" in seen:
+                prof["k2_launches"] = seen["K2"]
             return prof
-        log(f"[profile] {label}: the profiler kept {seen} of the {recorded} K1 launches the graph "
-            f"holds; profiling again")
-    raise AssertionError(f"{label}: K1 ran {seen} times in each of {tries} profiled replays, the "
-                         f"capture recorded {recorded} calls")
+        log(f"[profile] {label}: the profiler kept {seen} of the launches the graph holds "
+            f"({ {k: n for k, (_, n) in want.items()} }); profiling again")
+    raise AssertionError(f"{label}: {seen} launches in each of {tries} profiled replays, the "
+                         f"capture recorded { {k: n for k, (_, n) in want.items()} }")
 
 
 def profile_query(ctx, sql: str, label: str, name_power: str, top: int = 12) -> dict:
@@ -902,16 +1138,18 @@ def phase_sql(name_power: str):
         sql = get_named_query(name)
         rec = Recorder(aggregate.smalldomain_sum_count)
         aggregate.smalldomain_sum_count = rec
-        per_run, rows, secs, calls = [], [], [], []
+        per_run, rows, secs, calls, k2 = [], [], [], [], []
         try:
             SD.smalldomain_sum_count.launches = 0
             for _ in range(3):  # cold, check, capture + replay
                 before, ncalls = SD.smalldomain_sum_count.launches, len(rec.calls)
                 t0 = time.perf_counter()
-                rows.append(ctx.sql(sql).collect().to_pydict())
+                with TakeRecorder(name) as k2_run:
+                    rows.append(ctx.sql(sql).collect().to_pydict())
                 secs.append((time.perf_counter() - t0) * 1e3)
                 per_run.append(SD.smalldomain_sum_count.launches - before)
                 calls.append(rec.calls[ncalls:])
+                k2.append(k2_run)
             launches[name] = SD.smalldomain_sum_count.launches
         finally:
             aggregate.smalldomain_sum_count = rec.fn
@@ -940,15 +1178,18 @@ def phase_sql(name_power: str):
         ctx.sql(sql).collect().to_pydict()
         torch.cuda.synchronize()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
-        prof = profiled_replay(lambda: ctx.sql(sql).collect().to_pydict(), name, recorded)
+        prof = profiled_replay(lambda: ctx.sql(sql).collect().to_pydict(), name, recorded,
+                               k2_recorded=sum(r.recorded for r in k2))
         launches[name] += prof["k1_launches"]
+        K2_BY_PATH[name] += prof["k2_launches"]
         with path("eager"):
             eager = profile_query(ctx, sql, name + " eager", name_power,
                                   top=12 if name == "q18_bigorders" else 0)
         log(f"[sql] {name_power}: {name} SF{SF} matches the numpy oracle ({len(rows[0][next(iter(rows[0]))])} "
             f"rows) in the cold run, the check and the replay; {graph_state(wq)}; K1 launches {per_run} "
             f"(cold, check, capture), {recorded} recorded by the capture, {prof['k1_launches']} run by "
-            f"the profiled replay; "
+            f"the profiled replay; K2 launches {[r.launches for r in k2]}, {sum(r.recorded for r in k2)} "
+            f"recorded by the capture, {prof['k2_launches']} run by the profiled replay; "
             f"runs {['%.3f' % t for t in secs]} ms; {medians(runs)}; profiled replay: kernel time "
             f"{prof['kernel_ms']:.3f} ms in {prof['launches']} launches, device idle share "
             f"{prof['idle_share']:.1%}; profiled eager run: {eager['kernel_ms']:.3f} ms in "
@@ -1160,15 +1401,17 @@ def tpch_oracles(d: dict) -> dict:
 TPCH_ORACLE_ORDER = {3: [(1, True), (2, False)], 12: [(0, False)], 18: [(4, True), (3, False)]}
 
 
-def run_recorded(ctx, q: int):
+def run_recorded(ctx, q: int, take: "TakeRecorder | None" = None):
     """One run of query q with every K1 call recorded and K1's launch count
-    read around it: (rows, launches, recorder, seconds)."""
+    read around it: (rows, launches, recorder, seconds); with ``take``,
+    K2's calls are recorded around it too."""
     rec = Recorder(aggregate.smalldomain_sum_count)
     aggregate.smalldomain_sum_count = rec
     try:
         SD.smalldomain_sum_count.launches = 0
         t0 = time.perf_counter()
-        got = run_tpch(ctx, q).to_pydict()
+        with take if take is not None else contextlib.nullcontext():
+            got = run_tpch(ctx, q).to_pydict()
         secs = time.perf_counter() - t0
         launches = SD.smalldomain_sum_count.launches
     finally:
@@ -1310,7 +1553,8 @@ def phase_tpch(name_power: str, exp: ExpectedRows):
     for q in TPCH_QUERIES:
         label = f"Q{q} SF{SF}"
         syncs0 = HOST_SYNCS[0]
-        got, launches[f"tpch-q{q}"], rec, cold = run_recorded(ctx, q)
+        k2 = [TakeRecorder(f"tpch-q{q}") for _ in range(3)]  # cold, check, capture
+        got, launches[f"tpch-q{q}"], rec, cold = run_recorded(ctx, q, k2[0])
         cold_syncs = HOST_SYNCS[0] - syncs0
         nrows = len(tpch_rows(got))
         if nrows == 0:
@@ -1325,10 +1569,10 @@ def phase_tpch(name_power: str, exp: ExpectedRows):
             checked.append(f"tpch-q{q}-sf{SF:g}-inputs-{i}")
             err = max(err, k1_check(checked[-1], *args))
         del rec
-        eager_rows, _, _, check_secs = run_recorded(ctx, q)
+        eager_rows, _, _, check_secs = run_recorded(ctx, q, k2[1])
         single[q] = [tpch_rows(eager_rows), None]
         exp.check("check", q, eager_rows)
-        replay_rows, glaunches, grec, capture_secs = run_recorded(ctx, q)
+        replay_rows, glaunches, grec, capture_secs = run_recorded(ctx, q, k2[2])
         exp.check("replay", q, replay_rows)
         wq = whole_query(ctx)
         if twins[q]:
@@ -1363,9 +1607,11 @@ def phase_tpch(name_power: str, exp: ExpectedRows):
         torch.cuda.synchronize()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if wq.graph is not None:
-            prof = profiled_replay(lambda: run_tpch(ctx, q).to_pydict(), label, recorded)
+            prof = profiled_replay(lambda: run_tpch(ctx, q).to_pydict(), label, recorded,
+                                   k2_recorded=sum(r.recorded for r in k2))
             if prof["k1_launches"]:
                 launches[f"tpch-q{q}-graph"] = prof["k1_launches"]
+            K2_BY_PATH[f"tpch-q{q}-graph"] = prof["k2_launches"]
         else:
             prof = profile_run(lambda: run_tpch(ctx, q).to_pydict())
         with path("eager"):
@@ -1380,7 +1626,9 @@ def phase_tpch(name_power: str, exp: ExpectedRows):
             f"{' (cold run and replay match the numpy oracle)' if q in oracles else ''}; the cold run, "
             f"the check, the replay and an eager and an exact collect match the expected file; "
             f"{graph_state(wq)}; K1 launches cold {launches[f'tpch-q{q}']}, recorded by the capture "
-            f"{recorded}, run by the profiled replay {prof.get('k1_launches', '-')}; "
+            f"{recorded}, run by the profiled replay {prof.get('k1_launches', '-')}; K2 launches "
+            f"{[r.launches for r in k2]} (cold, check, capture), recorded by the capture "
+            f"{sum(r.recorded for r in k2)}, run by the profiled replay {prof.get('k2_launches', '-')}; "
             f"cold run {cold * 1e3:.3f} ms, {cold_syncs} host syncs; check {check_secs * 1e3:.3f} ms; "
             f"capture and replay {capture_secs * 1e3:.3f} ms; {medians(runs)}"
             f"{' (short: past the phase budget)' if late else ''}; runs "
@@ -1619,7 +1867,8 @@ def phase_window(name_power: str, ctx, oracles: dict, twins: dict) -> None:
         base_mb = torch.cuda.memory_allocated() / 2**20
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        got = table_arrays(ctx.sql(full).collect())
+        with TakeRecorder(f"window-{name}"):
+            got = table_arrays(ctx.sql(full).collect())
         full_ms = (time.perf_counter() - t0) * 1e3
         full_peak = torch.cuda.max_memory_allocated() / 2**20
         check_arrays(f"{name} SF{SF} full form vs numpy oracle", got, want,
@@ -1628,10 +1877,12 @@ def phase_window(name_power: str, ctx, oracles: dict, twins: dict) -> None:
         del got
         sql = window_sql(name, True)
         twant = timed_rows(name, want)
-        secs = []
+        secs, k2 = [], []
         for _ in range(3):  # cold, check, capture and replay
             t0 = time.perf_counter()
-            out = ctx.sql(sql).collect()
+            with TakeRecorder(f"window-{name}") as k2_run:
+                out = ctx.sql(sql).collect()
+            k2.append(k2_run)
             check_arrays(f"{name} SF{SF} timed form vs numpy oracle", table_arrays(out), twant,
                          None, WINDOW_FLOATS)
             secs.append((time.perf_counter() - t0) * 1e3)
@@ -1647,7 +1898,9 @@ def phase_window(name_power: str, ctx, oracles: dict, twins: dict) -> None:
         torch.cuda.synchronize()
         peak_mb = torch.cuda.max_memory_allocated() / 2**20
         if wq.graph is not None:
-            prof = profiled_replay(lambda: ctx.sql(sql).collect().to_pydict(), name, 0)
+            prof = profiled_replay(lambda: ctx.sql(sql).collect().to_pydict(), name, 0,
+                                   k2_recorded=sum(r.recorded for r in k2))
+            K2_BY_PATH[f"window-{name}"] += prof["k2_launches"]
         else:
             prof = profile_run(lambda: ctx.sql(sql).collect().to_pydict())
         with path("eager"):
@@ -1655,7 +1908,9 @@ def phase_window(name_power: str, ctx, oracles: dict, twins: dict) -> None:
         log(f"[window] {name_power}: {name} SF{SF} full form ({nfull} rows) matches the numpy oracle, "
             f"{full_ms:.3f} ms cold, peak memory {full_peak:.1f} MiB ({full_peak - base_mb:.1f} MiB above "
             f"the {base_mb:.1f} MiB allocated); timed form ({len(twant[next(iter(twant))][0])} rows) "
-            f"matches it in the cold run, the check and the replay; {graph_state(wq)}; runs "
+            f"matches it in the cold run, the check and the replay; {graph_state(wq)}; K2 launches "
+            f"{[r.launches for r in k2]} (cold, check, capture), {sum(r.recorded for r in k2)} recorded "
+            f"by the capture, {prof.get('k2_launches', '-')} run by the profiled replay; runs "
             f"{['%.3f' % t for t in secs]} ms; {medians(runs)}; profiled replay "
             f"{prof['profiled_wall_ms']:.3f} ms wall, kernel time {prof['kernel_ms']:.3f} ms in "
             f"{prof['launches']} launches, device idle share {prof['idle_share']:.1%}; profiled eager run "
@@ -1689,13 +1944,15 @@ def mesh_modes(ex) -> dict:
     return dict(collections.Counter(m for _, m in ex.node_modes))
 
 
-def mesh_run(ctx, q: int, mesh):
+def mesh_run(ctx, q: int, mesh, k2_path: str | None = None):
     """One strict run of TPC-H query q over ``mesh`` through run_tpch_spmd:
-    (rows, executor, seconds, host syncs)."""
+    (rows, executor, seconds, host syncs); K2's launches are added to
+    ``k2_path``, when given."""
     ex = SpmdExecutor(mesh, strict=True)
     s0 = HOST_SYNCS[0]
     t0 = time.perf_counter()
-    got = run_tpch_spmd(ctx, q, ex).to_pydict()
+    with TakeRecorder(k2_path) if k2_path else contextlib.nullcontext():
+        got = run_tpch_spmd(ctx, q, ex).to_pydict()
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
     if ex.fallback_count:
@@ -1737,14 +1994,14 @@ def phase_mesh(name_power: str, ctx, single: dict, q1_want: dict, exp: ExpectedR
         SD.smalldomain_sum_count.launches = 0
         base_mb = torch.cuda.memory_allocated() / 2**20
         torch.cuda.reset_peak_memory_stats()
-        got, ex, cold, cold_syncs = mesh_run(ctx, q, mesh)
+        got, ex, cold, cold_syncs = mesh_run(ctx, q, mesh, f"mesh-tpch-q{q}")
         check_tpch(f"{label} cold vs single-device", got, want, q in FULLY_ORDERED)
         exp.check("mesh cold", q, got)
         if q == 1:
             check_q1(got, q1_want)
         runs, syncs = [], []
         for i in range(MESH_WARM):
-            got, ex, secs, n = mesh_run(ctx, q, mesh)
+            got, ex, secs, n = mesh_run(ctx, q, mesh, f"mesh-tpch-q{q}")
             check_tpch(f"{label} warm run {i + 1} vs single-device", got, want, q in FULLY_ORDERED)
             runs.append(secs * 1e3)
             syncs.append(n)
@@ -1797,7 +2054,8 @@ def phase_mesh(name_power: str, ctx, single: dict, q1_want: dict, exp: ExpectedR
     os.environ["DFTPU_SPMD_STRICT"] = "1"
     SD.smalldomain_sum_count.launches = 0
     for q in (1, 3):
-        parts = ctx.sql(get_query_sql(q)).collect_partitioned(mesh=mesh)
+        with TakeRecorder("mesh-collect-partitioned-q1-q3"):
+            parts = ctx.sql(get_query_sql(q)).collect_partitioned(mesh=mesh)
         if len(parts) != MESH_SHARDS:
             raise AssertionError(f"Q{q} collect_partitioned: {len(parts)} parts")
         union = {i: list(c) for i, c in enumerate(zip(*(r for p in parts for r in tpch_rows(p.to_pydict()))))}
@@ -1816,7 +2074,7 @@ def phase_mesh(name_power: str, ctx, single: dict, q1_want: dict, exp: ExpectedR
     HostTable.materialize = lambda self: materialized.append(self.nrows) or orig(self)
     SD.smalldomain_sum_count.launches = 0
     try:
-        got, ex, secs, n = mesh_run(hctx, 1, mesh)
+        got, ex, secs, n = mesh_run(hctx, 1, mesh, "mesh-q1-host-resident")
     finally:
         HostTable.materialize = orig
     launches["mesh-q1-host-resident"] = SD.smalldomain_sum_count.launches
@@ -1976,7 +2234,8 @@ def phase_morsel(name_power: str) -> tuple:
             tracing.enable()
             t0 = time.perf_counter()
             try:
-                rows = hctx.sql(sql).collect().to_pydict()
+                with TakeRecorder("q1-sf10-host-resident-collect"):
+                    rows = hctx.sql(sql).collect().to_pydict()
             finally:
                 tracing.disable()
             runs.append((time.perf_counter() - t0) * 1e3)
@@ -2091,7 +2350,8 @@ def morsel_tpch(dctx, hctx, label: str, exp: ExpectedRows, warm: int = 3) -> dic
     for q in TPCH_QUERIES:
         want = tpch_rows(run_tpch(dctx, q).to_pydict())
         SD.smalldomain_sum_count.launches = 0
-        got = run_tpch(hctx, q).to_pydict()
+        with TakeRecorder(f"morsel-tpch-q{q}"):
+            got = run_tpch(hctx, q).to_pydict()
         k1 = SD.smalldomain_sum_count.launches
         check_tpch(f"Q{q} {label} host-resident cold run vs device-resident", got, want, q in FULLY_ORDERED)
         exp.check("host-resident lineitem", q, got)
@@ -2326,7 +2586,8 @@ def dist_run(dctx, q: int) -> dict:
     X.reset_times()
     SD.smalldomain_sum_count.launches = 0
     t0 = time.perf_counter()
-    got = dctx.sql(get_query_sql(q)).collect().to_pydict()
+    with TakeRecorder(f"distributed-q{q}"):
+        got = dctx.sql(get_query_sql(q)).collect().to_pydict()
     _sync(dctx.device)
     ms = (time.perf_counter() - t0) * 1e3
     return {"rows": got, "ms": ms, "k1": SD.smalldomain_sum_count.launches, "times": dict(X.TIMES),
@@ -2729,7 +2990,8 @@ def sf10_host(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) -> t
         try:
             SD.smalldomain_sum_count.launches = 0
             t0 = time.perf_counter()
-            got = run_tpch(ctx, q).to_pydict()
+            with TakeRecorder(f"sf10-q{q}-host"):
+                got = run_tpch(ctx, q).to_pydict()
             cold = (time.perf_counter() - t0) * 1e3
             k1 = SD.smalldomain_sum_count.launches
         finally:
@@ -2796,7 +3058,9 @@ def sf10_device(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) ->
     for q in SF10_QUERIES:
         label = f"Q{q} SF{SF10:g} device-resident"
         peak.reset()
-        got, k1, rec, cold = run_recorded(ctx, q)
+        path_k2 = f"sf10-q{q}-device"
+        k2 = [TakeRecorder(path_k2, check=True) for _ in range(3)]  # cold, check, capture
+        got, k1, rec, cold = run_recorded(ctx, q, k2[0])
         cold_peak = peak.reset() - base_mb
         exp.check("cold", q, got)
         if (k1 > 0) != (q in TPCH_K1_QUERIES):
@@ -2806,10 +3070,12 @@ def sf10_device(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) ->
             q1_args = rec.calls[0]
         launches[f"sf10-q{q}-device-cold"] = k1
         del rec, got
-        rows, _, _, check_s = run_recorded(ctx, q)
+        rows, _, _, check_s = run_recorded(ctx, q, k2[1])
         exp.check("check", q, rows)
-        rows, glaunches, grec, capture_s = run_recorded(ctx, q)
+        rows, glaunches, grec, capture_s = run_recorded(ctx, q, k2[2])
         exp.check("replay", q, rows)
+        for r in k2:
+            r.check_captured()
         wq = whole_query(ctx)
         if wq is not None and wq.failure is not None and wq.failure[0] != "guard":
             raise AssertionError(f"{label}: the whole-query build failed outside the guard: {wq.failure}")
@@ -2823,8 +3089,14 @@ def sf10_device(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) ->
         del grec, rows
         runs = warm_paths(lambda: run_tpch(ctx, q).to_pydict(), SF10_BATCHES)
         for p in ("eager", "exact"):
-            with path(p):
+            with path(p), TakeRecorder(path_k2, check=True) as k2_run:
                 exp.check(p, q, run_tpch(ctx, q).to_pydict())
+            k2.append(k2_run)
+        if (wq is not None and wq.graph is not None and k2[2].launches) or any(r.checked != r.calls for r in k2):
+            raise AssertionError(f"{label}: K2 launches {[r.launches for r in k2]} (cold, check, capture, "
+                                 f"eager, exact), calls {[r.calls for r in k2]}, checked "
+                                 f"{[r.checked for r in k2]}; want none launched by the capture and "
+                                 f"every call checked")
         syncs = warm_syncs(lambda: run_tpch(ctx, q), lambda t: t.to_pydict())
         dec = decode_ms(lambda: run_tpch(ctx, q))
         peak.reset()
@@ -2833,7 +3105,11 @@ def sf10_device(name_power: str, tables: dict, exp: ExpectedRows, peak: Peak) ->
         warm_peak = peak.reset() - base_mb
         log(f"[sf10] {name_power}: {label}: the cold run, the check, the replay and an eager and an "
             f"exact collect give the expected file's rows; {graph_state(wq)}; K1 launches cold {k1}, "
-            f"recorded by the capture {recorded}; cold {cold * 1e3:.3f} ms, check {check_s * 1e3:.3f} ms, "
+            f"recorded by the capture {recorded}; K2 launches {[r.launches for r in k2]} (cold, check, "
+            f"capture, eager, exact), {sum(r.recorded for r in k2)} recorded by the capture, equal to "
+            f"its plain version bit for bit at all {sum(r.checked for r in k2)} calls' inputs (the captured ones "
+            f"after the replay; the checks run inside the cold run and the check); "
+            f"cold {cold * 1e3:.3f} ms, check {check_s * 1e3:.3f} ms, "
             f"capture and replay {capture_s * 1e3:.3f} ms; {medians(runs)}; host syncs per warm run "
             f"{syncs[0]} (+{syncs[1]} to decode); decode {dec:.3f} ms; peak device memory above the "
             f"tables: cold run {cold_peak:.1f} MiB, warm run {warm_peak:.1f} MiB; "
@@ -2912,6 +3188,8 @@ def main() -> int:
 
     err = phase_kernels()
     t_phase = phase_done("build and kernels", t_main)
+    take_timing = phase_take(name_power)
+    t_phase = phase_done("take", t_phase)
 
     sql = get_query_sql(1)
     ctx, launches, args, captured = phase_main(sql, name_power)
@@ -2941,7 +3219,8 @@ def main() -> int:
     sql_launches, sql_err, sql_checked = phase_sql(name_power)
     err = max(err, sql_err)
     t_phase = phase_done("sql", t_phase)
-    phase_f4(name_power)
+    with TakeRecorder("f4"):
+        phase_f4(name_power)
     t_phase = phase_done("f4", t_phase)
     exp = ExpectedRows()
     tpch_launches, tpch_err, tpch_checked, ctx, single, q1_want = phase_tpch(name_power, exp)
@@ -2963,9 +3242,11 @@ def main() -> int:
     phase_morsel_tpch(name_power, exp)
     t_phase = phase_done("morsel-tpch", t_phase)
     with tempfile.TemporaryDirectory() as tmp:
-        phase_files(name_power, tmp)
+        with TakeRecorder("files"):
+            phase_files(name_power, tmp)
         t_phase = phase_done("files", t_phase)
-        phase_cli(name_power, tmp)
+        with TakeRecorder("cli"):
+            phase_cli(name_power, tmp)
         t_phase = phase_done("cli", t_phase)
     exp.require({
         **{p: TPCH_QUERIES for p in ("cold", "check", "replay", "eager", "exact", "mesh cold",
@@ -3006,6 +3287,26 @@ def main() -> int:
         "checked_at": ["K1_CASES", "q1-main-path-inputs", "q1-main-path-captured-inputs",
                        *sql_checked],
     }]
+    # K2 on every device path: each phase that collects on the card moves rows
+    k2_phases = {k: n for k, n in K2_BY_PHASE.items() if k not in ("build and kernels", "take")}
+    idle = sorted(k for k, n in K2_BY_PATH.items() if not n)
+    log(f"[take] {name_power}: K2 launched {sum(K2_BY_PATH.values())} times on {len(K2_BY_PATH)} paths "
+        f"(per phase {K2_BY_PHASE}); paths that moved no rows on the card: {idle}; held against its "
+        f"plain version at every call of {K2_CHECKED}")
+    if not all(k2_phases.values()) or not K2_CHECKED.get("q1"):
+        raise AssertionError(f"K2 never launched in a phase that collects on the card: {k2_phases}")
+    kernels.append({
+        "name": "take",
+        "route": "cuda",
+        "source": "datafusion_tpu_torch/csrc/take.cu",
+        "replaces": None,
+        "launches": sum(K2_BY_PATH.values()),
+        "launches_by_path": dict(K2_BY_PATH),
+        "bound_by": "bytes",
+        "sf10_shapes": take_timing,
+        "checked_against_plain": True,
+        "checked_at": [*take_timing, *(f"{k}: {n} calls" for k, n in K2_CHECKED.items())],
+    })
     print(name_power)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({

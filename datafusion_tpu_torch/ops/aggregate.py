@@ -299,9 +299,7 @@ def group_rows(key_cols, alive):
     kvalids = tuple(c.valid & alive for c in key_cols)
     nk = len(key_cols)
     perm = K.lexsort_perm(ordkeys, kvalids, n, (False,) * nk, (True,) * nk, dead_mask=~alive)
-    gid, ngroups = K.group_ids_sorted(
-        tuple(k[perm] for k in ordkeys), tuple(v[perm] for v in kvalids), n
-    )
+    gid, ngroups = K.group_ids_sorted(*K.take(ordkeys, kvalids, perm), n)
     return perm, ngroups, K.segments(gid), kvalids, n
 
 
@@ -337,7 +335,7 @@ def segment_aggregate(a: PhysAggExpr, t: Table, perm, seg: K.Segments, cap, aliv
     if perm is None:
         data, valid = v.data, v.valid & alive
     else:
-        data, valid = K.gather(v.data, perm), v.valid[perm] & alive
+        (data,), (valid,) = K.take((v.data,), (v.valid,), perm, alive)
 
     if a.distinct:
         # mask duplicate (group, value) pairs so each distinct value counts once
@@ -435,11 +433,11 @@ def merge_states(op: "HashAggregateExec", t: Table, alive) -> Table:
     names = [nm for _, nm in op.group_expr]
     cols = []
     if key_cols:
-        kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, perm[seg.first])
-        cols = [Column(c.dtype, d, v & gvalid, c.dictionary) for c, d, v in zip(key_cols, kd, kv)]
+        cols = K.take_columns(key_cols, perm, gvalid, seg.first, valids=kvalids)
 
     def state(c):
-        return K.gather(c.data, perm), c.valid[perm] & alive_s
+        (d,), (v,) = K.take((c.data,), (c.valid,), perm, alive_s)
+        return d, v
 
     idx = nk + ndv
     dvi = 0
@@ -589,9 +587,9 @@ def _sorted_aggregate(op, t, key_cols, alive, cap, emit_state):
     alive_sorted = torch.arange(cap, device=dev) < n
     gvalid_rows = torch.arange(cap, device=dev) < ngroups
     # each group's keys from its first row in sorted order
-    kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, perm[seg.first])
+    kd, kv = K.take(tuple(c.data for c in key_cols), kvalids, perm, gvalid_rows, seg.first)
     out_d = list(kd)
-    out_v = [v & gvalid_rows for v in kv]
+    out_v = list(kv)
     for a in op.aggr_expr:
         for c in segment_aggregate(a, t, perm, seg, cap, alive_sorted, ngroups, emit_state):
             out_d.append(c.data)

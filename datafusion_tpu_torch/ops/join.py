@@ -224,10 +224,11 @@ def join_tables(lt: Table, rt: Table, on, join_type: str, filter, metrics=None) 
         K.spec_record(flag)
     sel = K.keep_index(keep, out_cap)
     live = torch.arange(out_cap, device=dev) < cnt
-    cols = _side_columns(lt, li[sel], live)
+    # join outputs are row subsets of their inputs: value ranges carry over
+    cols = K.take_columns(lt.columns, li, live, sel, vranges=True)
     names = list(lt.names)
     if ri is not None:
-        cols += _side_columns(rt, ri[sel], live)
+        cols += K.take_columns(rt.columns, ri, live, sel, vranges=True)
         names += list(rt.names)
     out = Table(names, cols, cnt, device=dev)
     # right-sized from a count or a learned capacity: a shrink learns nothing
@@ -257,17 +258,6 @@ def _build_side(lt: Table, rt: Table, on, rkeys):
     return prep
 
 
-def _side_columns(t: Table, idx: torch.Tensor, live: torch.Tensor) -> list:
-    """The rows ``idx`` of t's columns (an index of -1 gives NULL).  Join
-    outputs are row subsets of their inputs: value ranges carry over."""
-    hit = live & (idx >= 0)
-    idx = torch.clamp(idx, min=0)
-    return [
-        Column(c.dtype, K.gather(c.data, idx), c.valid[idx] & hit, c.dictionary, vrange=c.vrange)
-        for c in t.columns
-    ]
-
-
 def _matches_per_probe(counts: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
     """Per probe row, how many of its candidate pairs verified, from prefix
     sums over the pairs (each probe row's pairs are contiguous).  Pairs
@@ -280,13 +270,7 @@ def _matches_per_probe(counts: torch.Tensor, ok: torch.Tensor) -> torch.Tensor:
 
 def _gather_pair_table(lt: Table, rt: Table, probe_idx, build_idx) -> Table:
     """Both sides' columns at the candidate pairs, for a residual filter."""
-    cols = [
-        Column(c.dtype, K.gather(c.data, probe_idx), c.valid[probe_idx], c.dictionary)
-        for c in lt.columns
-    ] + [
-        Column(c.dtype, K.gather(c.data, build_idx), c.valid[build_idx], c.dictionary)
-        for c in rt.columns
-    ]
+    cols = K.take_columns(lt.columns, probe_idx) + K.take_columns(rt.columns, build_idx)
     return Table(list(lt.names) + list(rt.names), cols, probe_idx.shape[0], device=lt.device)
 
 
@@ -348,11 +332,5 @@ def cross_join_tables(lt: Table, rt: Table) -> Table:
     li = torch.clamp(r // nr, max=max(lt.capacity - 1, 0))
     ri = torch.clamp(r % nr, max=max(rt.capacity - 1, 0))
     alive = r < total
-    cols = [
-        Column(c.dtype, K.gather(c.data, li), c.valid[li] & alive, c.dictionary)
-        for c in lt.columns
-    ] + [
-        Column(c.dtype, K.gather(c.data, ri), c.valid[ri] & alive, c.dictionary)
-        for c in rt.columns
-    ]
+    cols = K.take_columns(lt.columns, li, alive) + K.take_columns(rt.columns, ri, alive)
     return Table(list(lt.names) + list(rt.names), cols, total, device=dev)

@@ -154,11 +154,9 @@ class CrossJoinAggExec(ExecutionPlan):
         """The tile's pairs as a table over the joined schema: pair r joins
         whole row ``wi[r]`` with big row ``start + ki[r]``."""
         whole, big = (lt, rt) if whole_is_left else (rt, lt)
-        w_cols = [Column(c.dtype, K.gather(c.data, wi), c.valid[wi] & alive, c.dictionary)
-                  for c in whole.columns]
-        b_cols = [Column(c.dtype, K.gather(c.data[start:start + cc], ki),
-                         c.valid[start:start + cc][ki] & alive, c.dictionary)
-                  for c in big.columns]
+        w_cols = K.take_columns(whole.columns, wi, alive)
+        b_cols = K.take_columns([Column(c.dtype, c.data[start:start + cc], c.valid[start:start + cc],
+                                        c.dictionary) for c in big.columns], ki, alive)
         cols = w_cols + b_cols if whole_is_left else b_cols + w_cols
         return Table(list(lt.names) + list(rt.names), cols, 0, device=lt.device)
 
@@ -171,8 +169,7 @@ class CrossJoinAggExec(ExecutionPlan):
         cap = K.learned_count(cnt, self._learned, key, round_capacity)
         idx = K.keep_index(keep, cap)
         live = torch.arange(cap, device=keep.device) < cnt
-        cols = [Column(c.dtype, K.gather(c.data, idx), c.valid[idx] & live, c.dictionary)
-                for c in view.columns]
+        cols = K.take_columns(view.columns, idx, live)
         return Table(view.names, cols, torch.clamp(cnt, max=cap), device=view.device)
 
     def _display_line(self):

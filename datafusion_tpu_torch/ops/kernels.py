@@ -6,8 +6,8 @@ columns through one variadic XLA sort, packs gathers into int32 words and
 batches the boundary reads of many reductions into one packed gather,
 because gathers are slow on a TPU.  On a GPU a gather is cheap, so here a
 sort computes one permutation (successive stable ``torch.sort`` passes
-from the least significant key up) and every column is gathered by
-itself (``take``).
+from the least significant key up) and the columns move by it in one
+``take`` (``ops/take.py``, kernel K2 on the card).
 
 Segment reductions assume SORTED dense group ids (0..ngroups-1 for live
 rows, cap-1 for the trailing dead rows), the invariant every grouping
@@ -35,7 +35,9 @@ from typing import NamedTuple
 
 import torch
 
+from ..columnar.column import Column
 from ..types.dtypes import DataType
+from .take import take  # every caller moves rows through K.take
 
 # ---------------------------------------------------------------------------
 # key encoding
@@ -140,15 +142,25 @@ def sort_perm(keys: tuple) -> torch.Tensor:
     return perm
 
 
-def cosort(keys: tuple, payloads: tuple, num_keys: int | None = None):
-    """Stable sort by the first ``num_keys`` keys: returns
-    (sorted_keys, sorted_payloads)."""
-    nk = len(keys) if num_keys is None else num_keys
-    perm = sort_perm(tuple(keys[:nk]))
-    return (
-        tuple(gather(k, perm) for k in keys),
-        tuple(gather(p, perm) for p in payloads),
-    )
+def take_columns(cols, idx: torch.Tensor, mask=None, sel=None, valids=None,
+                 vranges: bool = False) -> list:
+    """The columns ``cols`` at the rows ``idx`` (``idx[sel]`` with
+    ``sel``), in one ``take``, each mask ANDed with ``mask`` (an index of
+    -1 gives NULL).  ``valids`` stands in for the columns' own masks;
+    ``vranges`` keeps their value ranges (the rows are a subset)."""
+    cols = tuple(cols)
+    datas, outv = take(tuple(c.data for c in cols),
+                       tuple(c.valid for c in cols) if valids is None else tuple(valids),
+                       idx, mask, sel)
+    return [Column(c.dtype, d, v, c.dictionary, vrange=c.vrange if vranges else None)
+            for c, d, v in zip(cols, datas, outv)]
+
+
+def compact(datas: tuple, valids: tuple, keep: torch.Tensor, live: torch.Tensor):
+    """The rows where ``keep`` holds at the front of fresh buffers, in
+    order (a stable sort keyed on ``~keep``), each mask ANDed with
+    ``live``, the first rows as many as ``keep`` holds."""
+    return take(datas, valids, sort_perm((~keep,)), mask=live)
 
 
 def filter_compact(datas: tuple, valids: tuple, keep: torch.Tensor, nrows):
@@ -156,14 +168,10 @@ def filter_compact(datas: tuple, valids: tuple, keep: torch.Tensor, nrows):
 
     Returns (datas, valids, count).  Dead rows (index >= nrows) are never
     kept; the count stays on the device."""
-    cap = keep.shape[0]
-    ar = torch.arange(cap, device=keep.device)
+    ar = torch.arange(keep.shape[0], device=keep.device)
     keep = keep & (ar < nrows)
     cnt = keep.sum()
-    live = ar < cnt
-    _, moved = cosort((~keep,), tuple(datas) + tuple(valids))
-    out_d = tuple(moved[: len(datas)])
-    out_v = tuple(v & live for v in moved[len(datas):])
+    out_d, out_v = compact(datas, valids, keep, ar < cnt)
     return out_d, out_v, cnt
 
 
@@ -199,7 +207,7 @@ def lexsort_apply(
         keys.append(rank)
         keys.append(kk)
     perm = sort_perm(tuple(keys))
-    moved = tuple(gather(p, perm) for p in payloads)
+    moved, _ = take(payloads, (), perm)
     return moved, (perm if want_perm else None)
 
 
@@ -218,12 +226,6 @@ def lexsort_perm(
         want_perm=True, dead_mask=dead_mask,
     )
     return perm
-
-
-def take(datas: tuple, valids: tuple, idx: torch.Tensor):
-    """Gather rows of many columns by one index vector, one gather per
-    column (the reference's ``take_rows`` and arrow ``take``)."""
-    return tuple(gather(d, idx) for d in datas), tuple(v[idx] for v in valids)
 
 
 # ---------------------------------------------------------------------------
@@ -488,8 +490,10 @@ def verify_equal(probe_keys, probe_valids, build_keys, build_valids, probe_idx, 
     equal on every key column (and the pair ``alive``)."""
     ok = (torch.ones(probe_idx.shape[0], dtype=torch.bool, device=probe_idx.device)
           if alive is None else alive)
-    for pk, pv, bk, bv in zip(probe_keys, probe_valids, build_keys, build_valids):
-        ok = ok & pv[probe_idx] & bv[build_idx] & (gather(pk, probe_idx) == gather(bk, build_idx))
+    pk, pv = take(probe_keys, probe_valids, probe_idx)
+    bk, bv = take(build_keys, build_valids, build_idx)
+    for a, va, b, vb in zip(pk, pv, bk, bv):
+        ok = ok & va & vb & (a == b)
     return ok
 
 

@@ -132,8 +132,7 @@ class RollingWindowAggExec(ExecutionPlan):
         if pcols:
             # partition keys: each partition's first row, repeated over the grid
             src = perm[seg.first][torch.clamp(r // nb, max=max(nparts - 1, 0))]
-        for (e, _), c, kv in zip(self.partition_by, pcols, kvalids if pcols else ()):
-            out_cols.append(Column(e.dtype, K.gather(c.data, src), kv[src] & live, c.dictionary))
+            out_cols += K.take_columns(pcols, src, live, valids=kvalids)
 
         names.append(self.dim_field.name)
         grid = self.from_v + (r % nb) * self.every_v

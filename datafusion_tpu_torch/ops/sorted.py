@@ -178,10 +178,7 @@ class SortedAggregateExec(ExecutionPlan):
         gid = torch.where(alive, torch.cumsum(boundary, 0) - 1, cap - 1)
         seg = K.segments(gid)
         gv = ar < ngroups
-        out_cols = [
-            Column(kc.dtype, K.gather(kc.data, seg.first), kc.valid[seg.first] & gv, kc.dictionary)
-            for kc in key_cols
-        ]
+        out_cols = K.take_columns(key_cols, seg.first, gv)
         for a in self.aggr_expr:
             out_cols += segment_aggregate(a, t, None, seg, cap, alive, ngroups,
                                           emit_state=self.mode == "partial")

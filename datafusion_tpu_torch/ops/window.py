@@ -163,7 +163,7 @@ class WindowAggExec(ExecutionPlan):
             src = ar - offset if f == "lag" else ar + offset
             src_c = torch.clamp(src, 0, cap - 1)
             ok = alive & (src >= 0) & (src < cap) & (p.gid[src_c] == p.gid)
-            return Column(v.dtype, K.gather(v.data, src_c), ok & v.valid[src_c], v.dictionary)
+            return K.take_columns((v,), src_c, ok)[0]
 
         if f in ("first_value", "last_value", "nth_value"):
             v = w.args[0].evaluate(t)
@@ -176,7 +176,7 @@ class WindowAggExec(ExecutionPlan):
                 src = p.start + (n - 1)
             src_c = torch.clamp(src, 0, cap - 1)
             ok = alive & (src >= p.start) & (src < p.start + p.size)
-            return Column(v.dtype, K.gather(v.data, src_c), v.valid[src_c] & ok, v.dictionary)
+            return K.take_columns((v,), src_c, ok)[0]
 
         if is_aggregate_function(f):
             v = w.args[0].evaluate(t) if w.args else None

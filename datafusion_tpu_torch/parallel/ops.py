@@ -52,7 +52,7 @@ from ..ops.aggregate import (
     to_float,
 )
 from ..ops.basic import _merge_dictionaries, concat_tables
-from ..ops.join import _join_keys, _key_hash, _matches_per_probe, _side_columns
+from ..ops.join import _join_keys, _key_hash, _matches_per_probe
 from ..types.dtypes import INT64
 from .collectives import AllGather, Pmax, Psum, gather_columns, run_spmd
 from .mesh import ShardedTable, pad_rows, segment_compaction, stack_counts
@@ -633,7 +633,8 @@ def _local_join(me, lt, rt, lcap, rcap, on, join_type, filter, pair_cap, final_c
     if filter is not None:
         pair = Table(
             list(lt.names) + list(rt.names),
-            _side_columns(lt, probe_idx, pair_alive) + _side_columns(rt, build_idx, pair_alive),
+            K.take_columns(lt.columns, probe_idx, pair_alive, vranges=True)
+            + K.take_columns(rt.columns, build_idx, pair_alive, vranges=True),
             0, device=dev,
         )
         fres = filter.evaluate(pair)
@@ -669,7 +670,9 @@ def _local_join(me, lt, rt, lcap, rcap, on, join_type, filter, pair_cap, final_c
     sel = K.keep_index(keep, final_cap)
     cnt = keep.sum()
     live = torch.arange(final_cap, device=dev) < cnt
-    return _side_columns(lt, li[sel], live) + _side_columns(rt, ri[sel], live), cnt, stats
+    cols = (K.take_columns(lt.columns, li, live, sel, vranges=True)
+            + K.take_columns(rt.columns, ri, live, sel, vranges=True))
+    return cols, cnt, stats
 
 
 # ---------------------------------------------------------------------------

@@ -316,9 +316,7 @@ class CompiledStage:
             nonlocal cur_d, cur_v, alive, compacted, n
             nn = alive.sum()
             live_sorted = torch.arange(cap, device=dev) < nn
-            _, moved = K.cosort((~alive,), tuple(cur_d) + tuple(cur_v))
-            cur_d = list(moved[: len(cur_d)])
-            cur_v = [v & live_sorted for v in moved[len(cur_d):]]
+            cur_d, cur_v = map(list, K.compact(tuple(cur_d), tuple(cur_v), alive, live_sorted))
             alive = live_sorted
             n = nn
             compacted = True

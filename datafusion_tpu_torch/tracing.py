@@ -37,8 +37,10 @@ as one unit, ``dftpu.collect.eager`` when it ran node by node, and
 ``dftpu.graph.pool_bytes`` (the bytes the graphs' shared pool grew by in
 it); the morsels a morsel loop ran by a graph's replay,
 ``dftpu.morsel.replayed``, and node by node, ``dftpu.morsel.eager`` (the
-first's share of their sum is the graphs' hit rate); and
-``dftpu.h2d.bytes``, the host rows copied to the device.  The
+first's share of their sum is the graphs' hit rate);
+``dftpu.h2d.bytes``, the host rows copied to the device; and
+``dftpu.take``, the calls that moved a table's rows through kernel K2's
+wrapper (``ops/take.py``; a graph's replay counts none).  The
 decode counts ``dftpu.decode.exact``: the result columns converted value
 by value, their values being outside the whole-column conversions'
 ranges (``columnar/column.py``).  No span or counter reads a device

@@ -5,8 +5,10 @@ without JAX (tests/conftest.py imports it):
 
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
 
-They check kernel K1 against its plain PyTorch version at TPC-H Q1's
-shapes and at edge cases (exact equality), among them every case of
+They check kernel K2 (``ops/take.py``) against its plain version, bit for
+bit, at the cases of ``tests/torch_take_cases.py``, at millions of rows
+and inside a CUDA graph; kernel K1 against its plain PyTorch version at
+TPC-H Q1's shapes and at edge cases (exact equality), among them every case of
 ``K1_CASES`` (``datafusion_tpu_torch/ops/smalldomain_cases.py``, which
 ``chip_smoke.py`` runs too); Q1 and the lineitem-only queries on the card
 against the same queries on the CPU; and that on the card Q1 and the
@@ -27,9 +29,11 @@ import torch
 
 from datafusion_tpu_torch import ExecutionContext
 from datafusion_tpu_torch.ops import smalldomain as SD
+from datafusion_tpu_torch.ops import take as TK
 from datafusion_tpu_torch.ops.smalldomain_cases import K1_CASES
 from datafusion_tpu_torch.q1data import generate_lineitem, generate_lineitem_q1
 from datafusion_tpu_torch.queries import NAMED_QUERIES, get_named_query, get_query_sql
+from torch_take_cases import TAKE_CASES, assert_same, expected, wide_case
 
 
 @pytest.fixture
@@ -105,6 +109,80 @@ def test_k1_refuses_what_it_does_not_take(cuda):
     with pytest.raises(ValueError):
         strided = torch.stack([cols[0], cols[0]], dim=1)[:, 0]
         SD.smalldomain_sum_count(gid, [strided], [None], 4)  # not contiguous
+
+
+def _k2_launches(args) -> int:
+    datas, valids, idx, _, sel = args
+    items = len(datas) + len(valids)
+    n = (idx if sel is None else sel).shape[0]
+    return -(-items // TK.MAX_ITEMS) if n else 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", list(TAKE_CASES))
+def test_k2_kernel_equals_plain(cuda, case):
+    """K2 against its plain version on the CPU and the per-column form,
+    bit for bit (``tests/torch_take_cases.py``; ``wide`` takes three
+    launches)."""
+    args = TAKE_CASES[case](np.random.default_rng(5), cuda)
+    cpu = TAKE_CASES[case](np.random.default_rng(5), "cpu")
+    before = TK.take.launches
+    got = TK.take(*args)
+    torch.cuda.synchronize()
+    assert TK.take.launches == before + _k2_launches(args)
+    assert_same(got, TK.take(*cpu))
+    assert_same(got, expected(*cpu))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,random", [(1 << 22, True), ((1 << 22) + 1, False)])
+def test_k2_at_scale_equals_plain(cuda, n, random):
+    """Millions of rows, scattered and monotone, a ragged last pair."""
+    rng = np.random.default_rng(6)
+    args = wide_case(rng, cuda, ncols=6, cap=n, n=n)
+    datas, valids, idx, mask, sel = args
+    if not random:
+        idx = torch.arange(n, device=cuda) - 1  # row 0 NULL
+    got = TK.take(datas, valids, idx, mask, sel)
+    torch.cuda.synchronize()
+    assert_same(got, TK.take_plain(datas, valids, idx, mask, sel))
+
+
+@pytest.mark.gpu
+def test_k2_captured_in_a_cuda_graph(cuda):
+    """A capture records the launches (and counts none); each replay
+    moves the rows the index holds at the replay."""
+    rng = np.random.default_rng(8)
+    datas, valids, idx, mask, sel = wide_case(rng, cuda)
+    TK.take(datas, valids, idx, mask, sel)  # builds the kernel outside the capture
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = TK.take.launches
+    with torch.cuda.graph(graph):
+        out = TK.take(datas, valids, idx, mask, sel)
+    assert TK.take.launches == before
+    for seed in (1, 2):
+        fresh = np.random.default_rng(seed).integers(-1, datas[0].shape[0], idx.shape[0])
+        idx.copy_(torch.from_numpy(fresh))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert_same(out, expected(datas, valids, idx, mask, sel))
+    assert TK.take.launches == before
+
+
+@pytest.mark.gpu
+def test_k2_refuses_what_it_does_not_take(cuda):
+    d = torch.zeros(10, dtype=torch.int64, device=cuda)
+    v = torch.ones(10, dtype=torch.bool, device=cuda)
+    idx = torch.zeros(4, dtype=torch.int64, device=cuda)
+    with pytest.raises(ValueError):
+        TK.take((d,), (v,), idx.float())  # a float index
+    with pytest.raises(ValueError):
+        TK.take((d,), (v.to(torch.int8),), idx)  # a mask that is not bool
+    with pytest.raises(ValueError):
+        TK.take((d.cpu(),), (v,), idx)  # another device
+    with pytest.raises(ValueError):
+        TK.take((torch.zeros(10, 4, device=cuda)[:, ::2],), (), idx)  # rows not contiguous
 
 
 @pytest.mark.gpu

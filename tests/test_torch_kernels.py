@@ -21,6 +21,7 @@ from datafusion_tpu.ops import kernels as JK
 from datafusion_tpu.types import dtypes as JT
 from datafusion_tpu_torch.ops import kernels as K
 from datafusion_tpu_torch.types import dtypes as T
+from torch_take_cases import TAKE_CASES, assert_same, expected
 
 REL = 1e-12
 
@@ -89,6 +90,43 @@ def test_take_rows_and_take_match_numpy(rng):
     assert len(d) == len(datas) and len(v) == len(valids)
     for got, src in zip(d + v, datas + valids):
         assert got.dtype == _t(src).dtype and np.array_equal(_np(got), src[idx])
+
+
+@pytest.mark.parametrize("case", list(TAKE_CASES))
+def test_take_plain_equals_per_column_form(case):
+    """K2's plain version (what ``K.take`` runs on CPU tensors) against the
+    per-column gathers, clamps and ANDs the call sites had, bit for bit:
+    every storage dtype, list columns, the null rule, an outer index, an
+    empty index, no columns (``tests/torch_take_cases.py``)."""
+    args = TAKE_CASES[case](np.random.default_rng(3), "cpu")
+    assert_same(K.take(*args), expected(*args))
+
+
+@pytest.mark.parametrize("vranges", [False, True])
+def test_take_columns_keeps_types_and_masks(vranges):
+    """``K.take_columns`` moves whole Columns: dtype and dictionary carried
+    over, the value range only with ``vranges``, ``valids`` in place of the
+    columns' own masks, the outer index and the null rule as ``K.take``."""
+    from datafusion_tpu_torch.columnar.column import Column
+    from datafusion_tpu_torch.columnar.dictionary import StringDict
+
+    dic, _ = StringDict.from_strings(["a", "b", "c"])
+    cols = [
+        Column(T.INT64, torch.tensor([5, 6, 7, 8]), torch.tensor([True, False, True, True]),
+               vrange=(5, 8)),
+        Column(T.STRING, torch.tensor([2, 0, 1, 2], dtype=torch.int32), torch.ones(4, dtype=torch.bool),
+               dic),
+    ]
+    idx = torch.tensor([3, -1, 0, 1])
+    sel = torch.tensor([2, 0, 1])
+    mask = torch.tensor([True, True, False])
+    own = torch.tensor([False, True, True, True])
+    out = K.take_columns(cols, idx, mask, sel, valids=(own, cols[1].valid), vranges=vranges)
+    assert [c.dtype for c in out] == [T.INT64, T.STRING] and out[1].dictionary is dic
+    assert [c.vrange for c in out] == ([(5, 8), None] if vranges else [None, None])
+    # rows idx[sel] = 0, 3, -1: the row mask clears the third, -1 gives NULL
+    assert out[0].data.tolist() == [5, 8, 5] and out[0].valid.tolist() == [False, True, False]
+    assert out[1].data.tolist() == [2, 2, 2] and out[1].valid.tolist() == [True, True, False]
 
 
 def _gid_of_kind(rng, kind, cap=4096):
