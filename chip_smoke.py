@@ -1825,6 +1825,8 @@ def timed_rows(name: str, full: dict) -> dict:
     keep = np.ones(len(full[next(iter(full))][0]), bool)
     if name == "W1":
         keep = full["rk"][0] <= 3
+    if name == "W3":
+        keep = full["prev_p"][1] & full["next_p"][1]
     order = np.lexsort(tuple(full[c][0] for c, _ in reversed(WINDOW_TIMED_ORDER[name])))
     order = order[keep[order]][:100]
     return {c: (v[order], m[order]) for c, (v, m) in full.items()}

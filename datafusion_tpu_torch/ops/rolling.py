@@ -23,13 +23,15 @@ reference reads the partition count on the host; here the first run
 size the grid from the learned count with an overflow flag, so a warm plan
 reads nothing on the host.  Per-cell float sums add in a fixed order (a
 segmented scan over the cell-sorted rows), so a card's result does not
-change from run to run.
+change from run to run.  The tracer's span ``dftpu.rolling`` holds the
+operator's work after its input has run.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import tracing
 from ..columnar.column import Column
 from ..columnar.table import Table, round_capacity
 from ..device import torch_dtype
@@ -102,7 +104,10 @@ class RollingWindowAggExec(ExecutionPlan):
 
     # ------------------------------------------------------------------
     def _execute(self) -> Table:
-        t = self.input.execute()
+        return self._rolling(self.input.execute())
+
+    @tracing.spanned("dftpu.rolling")
+    def _rolling(self, t: Table) -> Table:
         cap, nb, dev = t.capacity, self.nbuckets, t.device
         alive = torch.arange(cap, device=dev) < t.nrows_dev
 

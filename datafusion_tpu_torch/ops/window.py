@@ -18,6 +18,8 @@ every function is a vectorized pass over the sorted rows:
                    sum/count/avg and a sparse table for min/max
 Output rows stay in (partition, order) sorted order, as in the reference.
 Nothing is read on the host, so a warm window plan is captured whole.
+The tracer's span ``dftpu.window`` holds one window's work, split into
+``.sort``, ``.partition`` and ``.eval``; a graph's replay records none.
 The reference's per-shape ``jax.jit`` cache has no counterpart.
 
 The float sums and the binary searches follow the reference's order of
@@ -34,6 +36,7 @@ from fractions import Fraction
 
 import torch
 
+from .. import tracing
 from ..columnar.column import Column
 from ..columnar.table import Table
 from ..device import torch_dtype
@@ -93,6 +96,7 @@ class WindowAggExec(ExecutionPlan):
         names, cols = self._traced_window(t, t.nrows_dev, t.capacity)
         return Table(names, cols, t.nrows_dev, device=t.device)
 
+    @tracing.spanned("dftpu.window")
     def _traced_window(self, t: Table, nrows, cap):
         """(names, columns) of the input's columns sorted by the window's
         partition and order keys, then one column per window expression.
@@ -101,26 +105,31 @@ class WindowAggExec(ExecutionPlan):
         # and order keys: sort once by the first's
         w0 = self.window_exprs[0]
         specs = [PhysSortExpr(p, True, True) for p in w0.partition_by] + list(w0.order_by)
+        tracing.count("dftpu.window.exprs", len(self.window_exprs))
         if specs:
-            t = sort_table(Table(t.names, t.columns, nrows, device=t.device), specs)
-        dev = t.device
-        ar = torch.arange(cap, device=dev)
-        alive = ar < nrows
-        if w0.partition_by:
-            pcols = [p.evaluate(t) for p in w0.partition_by]
-            gid, _ = K.group_ids_sorted(
-                tuple(K.orderable_key(c.data, c.dtype) for c in pcols),
-                tuple(c.valid for c in pcols),
-                nrows,
-            )
-        else:
-            gid = torch.where(alive, 0, cap - 1)
-        seg = K.segments(gid)
-        p = _Partitions(gid, seg.start, seg.last[gid] - seg.start + 1, alive, ar)
+            tracing.count("dftpu.window.rows", cap)
+            with tracing.span("dftpu.window.sort"):
+                t = sort_table(Table(t.names, t.columns, nrows, device=t.device), specs)
+        with tracing.span("dftpu.window.partition"):
+            dev = t.device
+            ar = torch.arange(cap, device=dev)
+            alive = ar < nrows
+            if w0.partition_by:
+                pcols = [p.evaluate(t) for p in w0.partition_by]
+                gid, _ = K.group_ids_sorted(
+                    tuple(K.orderable_key(c.data, c.dtype) for c in pcols),
+                    tuple(c.valid for c in pcols),
+                    nrows,
+                )
+            else:
+                gid = torch.where(alive, 0, cap - 1)
+            seg = K.segments(gid)
+            p = _Partitions(gid, seg.start, seg.last[gid] - seg.start + 1, alive, ar)
         names, cols = list(t.names), list(t.columns)
-        for w in self.window_exprs:
-            names.append(w.name)
-            cols.append(self._eval_window(w, t, p))
+        with tracing.span("dftpu.window.eval"):
+            for w in self.window_exprs:
+                names.append(w.name)
+                cols.append(self._eval_window(w, t, p))
         return names, cols
 
     # ------------------------------------------------------------------

@@ -4,7 +4,8 @@ TPC-H tables of ``tpchdata``.
 
 Each query has a full form (every row) and a timed form, the full form
 under the ORDER BY ... LIMIT 100 that TPC-DS puts around it (W1 with
-Q67/Q70's filter on the rank); R1's result is small and has one form.
+Q67/Q70's filter on the rank, W3 with Q47/Q57's on the neighbours); R1's
+result is small and has one form.
 ``window_sql(name, timed)`` gives the text.
 """
 
@@ -23,14 +24,17 @@ WINDOW_QUERIES = {
            "ROW) AS cume FROM lineitem",
            "ORDER BY l_suppkey, l_shipdate, l_orderkey, l_linenumber LIMIT 100",
            ("l_orderkey", "l_linenumber")),
-    # W3, TPC-DS Q47/Q57: a moving frame, lag and lead
+    # W3, TPC-DS Q47/Q57: a moving frame, lag and lead; the timed form
+    # keeps the rows that have both neighbours, as Q47/Q57 do by joining
+    # each row to the rows ranked one before and one after it
     "W3": ("SELECT l_partkey, l_orderkey, l_linenumber, "
            + ", ".join(f"{f}(l_quantity) OVER (PARTITION BY l_partkey {_W_LINEITEM_ORDER} ROWS BETWEEN "
                        f"3 PRECEDING AND 3 FOLLOWING) AS {f}_q" for f in ("avg", "min", "max"))
            + f", lag(l_extendedprice) OVER (PARTITION BY l_partkey {_W_LINEITEM_ORDER}) AS prev_p, "
            f"lead(l_extendedprice) OVER (PARTITION BY l_partkey {_W_LINEITEM_ORDER}) AS next_p "
            "FROM lineitem",
-           "ORDER BY l_partkey, l_orderkey, l_linenumber LIMIT 100", ("l_orderkey", "l_linenumber")),
+           "WHERE prev_p IS NOT NULL AND next_p IS NOT NULL ORDER BY l_partkey, l_orderkey, l_linenumber "
+           "LIMIT 100", ("l_orderkey", "l_linenumber")),
     # W4: TPC-DS Q12/Q98's ratio to a partition total over an aggregate
     # does not plan in the JAX package (a window over an aggregate's
     # output), so a RANGE offset frame on an integer column: a customer's

@@ -29,6 +29,13 @@ A request is one query: ``ExecutionContext.sql`` assigns it, the
   dftpu.morsel.merge   a morsel stage's merge and finish
   dftpu.decode         Table.to_pydict; per column .copy (device to host)
                        and .convert (numpy to Python values)
+  dftpu.window         one window operator's work (``ops/window.py``,
+                       ``WindowAggExec._traced_window``, also from a fused
+                       stage); children .sort (the sort by the partition
+                       and order keys), .partition (partition ids and
+                       their segments) and .eval (the window functions)
+  dftpu.rolling        one ROLLING_WINDOW operator's work
+                       (``ops/rolling.py``, after its input has run)
 
 and the counters of ``.run``: ``dftpu.collect.whole`` when the plan ran
 as one unit, ``dftpu.collect.eager`` when it ran node by node, and
@@ -40,7 +47,9 @@ it); the morsels a morsel loop ran by a graph's replay,
 first's share of their sum is the graphs' hit rate);
 ``dftpu.h2d.bytes``, the host rows copied to the device; and
 ``dftpu.take``, the calls that moved a table's rows through kernel K2's
-wrapper (``ops/take.py``; a graph's replay counts none).  The
+wrapper (``ops/take.py``; a graph's replay counts none); a window's
+``dftpu.window.rows``, the capacity rows it sorts (known on the host),
+and ``dftpu.window.exprs``, its window functions.  The
 decode counts ``dftpu.decode.exact``: the result columns converted value
 by value, their values being outside the whole-column conversions'
 ranges (``columnar/column.py``).  No span or counter reads a device
